@@ -1,0 +1,372 @@
+"""Key generation: fixed/permutation polynomials, commitments, artifacts
+(port of zkfhe_tpu/backend/keygen.py, default table-MSM path).
+
+All polynomial math (iNTT to coefficient form, commitment MSMs, sigma
+values) runs on the device of the SRS tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import json
+import time
+
+import numpy as np
+import torch
+
+from ..ops import curve as C
+from ..ops import field as F
+from ..ops import msm as M
+from ..ops import ntt as N
+from ..ops.field import FR
+from . import srs as SRS
+from .assembly import Assembly, assemble
+from .transcript import _point_bytes
+from ..trace.compile import trace_layout
+from ..utils.convert import proving_key_arrays
+
+
+def find_delta(field: F.Field, min_order: int = 4096) -> int:
+    """Permutation coset shift: odd-order element (orders coprime to the
+    2^k domain), order > #perm columns so delta^i H are distinct cosets."""
+    two_adic = (field.p - 1)
+    s = 0
+    while two_adic % 2 == 0:
+        two_adic //= 2
+        s += 1
+    for g in range(3, 100):
+        d = pow(g, 1 << s, field.p)
+        x, ok = d, True
+        for _ in range(min_order):
+            if x == 1:
+                ok = False
+                break
+            x = x * d % field.p
+        if ok and d != 1:
+            return d
+    raise AssertionError("no delta found")
+
+
+# Column capacities of the shared blind-tail MSM
+TAIL_KS = (8, 64, 256)
+
+# Table-MSM batch sizes (columns per launch) at n=8192; narrower for
+# full-width columns, whose gathers are W(256)/W(tier) times larger
+TIER_BATCH = 8
+FULL_BATCH = 4
+
+
+def _batch_caps(n: int) -> tuple[int, int]:
+    scale = max(1, n // 8192)
+    return max(1, TIER_BATCH // scale), max(1, FULL_BATCH // scale)
+
+
+def _stacked_add(a, b):
+    """(3, L, K) + (3, L, K) stacked-Jacobian complete point add."""
+    return torch.stack(C.point_add((a[0], a[1], a[2]), (b[0], b[1], b[2])),
+                       dim=0)
+
+
+class Committer:
+    """Fixed-base commitment engine: every commitment is a gather + log-
+    depth tree reduction against ONE table of shifted multiples of the
+    Lagrange-basis SRS points (ops/msm.py). Columns with narrow values
+    (quantised to ops/msm.TAB_TIERS) gather only their low windows."""
+
+    def __init__(self, srs: "SRS.SRS", n: int, u: int):
+        assert srs.g1_lag is not None, "SRS lacks Lagrange-basis points"
+        self.srs = srs
+        self.n = n
+        self.u = u
+        self.tier_cap, self.full_cap = _batch_caps(n)
+        self._tab = None
+
+    @property
+    def table(self) -> M.PointTable:
+        if self._tab is None:
+            cached = getattr(self.srs, "_tab_cache", None)
+            if cached is not None and cached.n == self.n:
+                self._tab = cached
+            else:
+                X, Y = self.srs.g1_lag
+                self._tab = M.build_table((X[:, : self.n], Y[:, : self.n]))
+                self.srs._tab_cache = self._tab
+        return self._tab
+
+    def _msm(self, std, max_bits, row_offset, kpad):
+        """(L, K, rows) standard-form scalars -> (3, L, kpad) stacked
+        Jacobian."""
+        K = std.shape[1]
+        if K < kpad:
+            std = torch.cat([std, F.zero((kpad - K,) + std.shape[2:],
+                                         std.device)], dim=1)
+        return M.msm_tab_stacked(self.table, std, max_bits=max_bits,
+                                 row_offset=row_offset)
+
+    @staticmethod
+    def _decode(jac) -> list:
+        return C.decode_points((jac[0], jac[1], jac[2]))
+
+    def commit_values(self, vals_mont, split_tail: bool = True,
+                      col_bits=None):
+        """(L, K, n) Montgomery evaluation-form columns -> K commitments.
+
+        split_tail: rows [0, u) are width-tiered per column; rows [u, n)
+        (the full-width blinding tails of advice columns) are committed for
+        all K columns in one shared launch and added on the device.
+        col_bits: static per-column value bounds; without it widths are
+        measured from the values (fine for public columns).
+        """
+        L_, K, n = vals_mont.shape
+        if K == 0:
+            return []
+        assert n == self.n
+        std = F.from_mont(FR, vals_mont)
+        if not split_tail:
+            fb = self.full_cap
+            parts = []
+            for s in range(0, K, fb):
+                w = min(fb, K - s)
+                parts.append(self._msm(std[:, s:s + fb], 256, 0,
+                                       fb)[:, :, :w])
+            return self._decode(torch.cat(parts, dim=2))[:K]
+        u = self.u
+        main = std[:, :, :u]
+        if col_bits is not None:
+            widths = [min(int(b), 256) for b in col_bits]
+            assert len(widths) == K, (len(widths), K)
+        else:
+            widths = M.column_max_bits(main)
+        tiers = [M.tab_tier_bits(w) for w in widths]
+        order = np.argsort(np.asarray(tiers), kind="stable")
+        parts, perm = [], []
+        i = 0
+        while i < K:
+            # homogeneous tier batches: a mixed batch would run at its
+            # widest tier
+            tier = tiers[order[i]]
+            cap = self.tier_cap if tier < 256 else self.full_cap
+            idx = []
+            while i < K and tiers[order[i]] == tier and len(idx) < cap:
+                idx.append(int(order[i]))
+                i += 1
+            sel = torch.as_tensor(idx, dtype=torch.int64, device=std.device)
+            parts.append(self._msm(main[:, sel], tier, 0,
+                                   cap)[:, :, :len(idx)])
+            perm.extend(idx)
+        jac_main = torch.cat(parts, dim=2)
+        inv = torch.as_tensor(np.argsort(np.asarray(perm, dtype=np.int64)),
+                              device=std.device)
+        jac_main = jac_main[:, :, inv]
+        kpad = next((c for c in TAIL_KS if c >= K), -(-K // 64) * 64)
+        tail = self._msm(std[:, :, u:], 256, u, kpad)[:, :, :K]
+        return self._decode(_stacked_add(jac_main, tail))
+
+    def commit_coeffs(self, coeffs_mont, dom):
+        """(L, K, n) Montgomery coefficient-form columns -> commitments."""
+        if coeffs_mont.shape[1] == 0:
+            return []
+        return self.commit_values(N.ntt(dom, coeffs_mont), split_tail=False)
+
+
+def make_committer(srs: "SRS.SRS", n: int, u: int) -> Committer:
+    """Committer for the table-MSM path (the only path ported)."""
+    return Committer(srs, n, u)
+
+
+@dataclasses.dataclass
+class VerifyingKey:
+    k: int
+    shape: dict  # column/term shape metadata (drives the verifier)
+    fixed_commits: list  # AffinePoint, order of Assembly.fixed_column_values
+    sigma_commits: list  # AffinePoint per permutation column
+    g2_gen: tuple
+    g2_tau: tuple
+    delta: int
+    instance_size: int
+
+
+def vk_digest(vk: "VerifyingKey") -> bytes:
+    """Binding digest of the verifying key (the circuit's identity)."""
+    h = hashlib.blake2b(b"zkfhe-tpu-vk-v1")
+    h.update(json.dumps(vk.shape, sort_keys=True).encode())
+    h.update(int(vk.k).to_bytes(4, "little"))
+    h.update(int(vk.delta).to_bytes(32, "little"))
+    h.update(int(vk.instance_size).to_bytes(8, "little"))
+    for p in list(vk.fixed_commits) + list(vk.sigma_commits):
+        h.update(_point_bytes(p))
+    for g2pt in (vk.g2_gen, vk.g2_tau):
+        for coord in g2pt:
+            for limb in coord:
+                h.update(int(limb).to_bytes(32, "little"))
+    return h.digest()
+
+
+@dataclasses.dataclass
+class ProvingKey:
+    vk: VerifyingKey
+    asm: Assembly
+    fixed_coeffs: torch.Tensor  # (L, NF, n) Montgomery
+    sigma_coeffs: torch.Tensor  # (L, P, n) Montgomery
+    sigma_vals: torch.Tensor  # (L, P, n) Montgomery (Lagrange basis)
+
+
+def shape_of(asm: Assembly) -> dict:
+    return {
+        "num_advice": asm.num_advice,
+        "num_p0_cols": asm.num_p0_cols,
+        "num_gate_cols": asm.num_gate_cols,
+        "num_lk_cols": asm.num_lk_cols,
+        "sel_cols": sorted(asm.sel_rows),
+        "chal_cols": sorted(asm.chal_rows),
+        "num_perm_cols": asm.num_perm_cols,
+        "instance_size": asm.instance_size,
+        "usable_rows": asm.u,
+    }
+
+
+class _Stages:
+    """Wall time of each keygen stage (synchronising the card at each
+    boundary) into `out`, when a dict is given; otherwise nothing."""
+
+    def __init__(self, out, device):
+        self.out, self.device = out, device
+        self.t = time.time()
+
+    def __call__(self, name):
+        if self.out is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.time()
+        self.out[name] = now - self.t
+        self.t = now
+
+
+def keygen(circuit_fn, example_inputs, k: int, srs: SRS.SRS,
+           stages: dict | None = None) -> ProvingKey:
+    """stages: if a dict, receives the seconds each keygen stage took."""
+    dev = srs.g1[0].device
+    stage = _Stages(stages, dev)
+    layout = trace_layout(circuit_fn, example_inputs)
+    stage("layout")
+    asm = assemble(layout, k)
+    stage("assembly")
+    n = asm.n
+    assert srs.n >= n, "SRS too small for k"
+    dom = N.Domain.new(k)
+    delta = find_delta(FR, min_order=asm.num_perm_cols + 16)
+
+    # ---- fixed columns -> Montgomery Lagrange values -> coeffs ----------
+    fixed_named = asm.fixed_column_values()
+    fixed_vals_std = np.stack(
+        [F.encode_ints_np([int(v) % FR.p for v in col])
+         for _, col in fixed_named], axis=1)  # (L, NF, n)
+    fixed_vals = F.to_mont(FR, F.tensor(fixed_vals_std, dev))
+    fixed_coeffs = N.intt(dom, fixed_vals)
+    stage("fixed columns")
+
+    # ---- sigma polynomials: delta^{sigma_col} * omega^{sigma_row} -------
+    P = asm.num_perm_cols
+    delta_pows = [1] * P
+    for i in range(1, P):
+        delta_pows[i] = delta_pows[i - 1] * delta % FR.p
+    omega_pows = dom.powers(dom.omega)
+    dp = F.tensor(F.encode(FR, delta_pows, mont=True), dev)  # (L, P)
+    wp = F.tensor(F.encode_ints_np(
+        [FR.to_mont_int(v) for v in omega_pows]), dev)  # (L, n)
+    dsel = dp[:, torch.as_tensor(asm.sigma_col.reshape(-1).astype(np.int64),
+                                 device=dev)]
+    wsel = wp[:, torch.as_tensor(asm.sigma_row.reshape(-1).astype(np.int64),
+                                 device=dev)]
+    sigma_vals = F.mont_mul(FR, dsel, wsel).reshape(F.NLIMBS, P, n)
+    sigma_coeffs = N.intt(dom, sigma_vals)
+    stage("sigma columns")
+
+    # ---- commitments -----------------------------------------------------
+    committer = make_committer(srs, n, asm.u)
+    committer.table  # noqa: B018  (built here so its time is its own)
+    stage("table")
+    fixed_commits = committer.commit_values(fixed_vals)
+    stage("fixed commits")
+    sigma_commits = committer.commit_values(sigma_vals, split_tail=False)
+    stage("sigma commits")
+
+    vk = VerifyingKey(
+        k=k, shape=shape_of(asm),
+        fixed_commits=fixed_commits, sigma_commits=sigma_commits,
+        g2_gen=srs.g2_gen, g2_tau=srs.g2_tau,
+        delta=delta, instance_size=asm.instance_size,
+    )
+    return ProvingKey(vk=vk, asm=asm, fixed_coeffs=fixed_coeffs,
+                      sigma_coeffs=sigma_coeffs, sigma_vals=sigma_vals)
+
+
+# ---------------------------------------------------------------------------
+# Artifact io (same files as the JAX package writes)
+# ---------------------------------------------------------------------------
+
+def _points_to_obj(pts):
+    return np.asarray(
+        [[0, 0] if p.infinity else [p.x, p.y] for p in pts], dtype=object
+    )
+
+
+def _points_from_obj(arr):
+    out = []
+    for x, y in arr:
+        out.append(C.AffinePoint() if int(x) == 0 and int(y) == 0
+                   else C.AffinePoint(int(x), int(y)))
+    return out
+
+
+def save_vk(vk: VerifyingKey, path: str):
+    np.savez_compressed(
+        path,
+        k=vk.k, shape=json.dumps(vk.shape), delta=str(vk.delta),
+        instance_size=vk.instance_size,
+        fixed=_points_to_obj(vk.fixed_commits),
+        sigma=_points_to_obj(vk.sigma_commits),
+        g2_gen=np.asarray([*vk.g2_gen[0], *vk.g2_gen[1]], dtype=object),
+        g2_tau=np.asarray([*vk.g2_tau[0], *vk.g2_tau[1]], dtype=object),
+        allow_pickle=True,
+    )
+
+
+def load_vk(path: str) -> VerifyingKey:
+    # the points are python ints in object arrays, written by save_vk
+    d = np.load(path, allow_pickle=True)
+    g2g = [int(v) for v in d["g2_gen"]]
+    g2t = [int(v) for v in d["g2_tau"]]
+    return VerifyingKey(
+        k=int(d["k"]), shape=json.loads(str(d["shape"])),
+        fixed_commits=_points_from_obj(d["fixed"]),
+        sigma_commits=_points_from_obj(d["sigma"]),
+        g2_gen=((g2g[0], g2g[1]), (g2g[2], g2g[3])),
+        g2_tau=((g2t[0], g2t[1]), (g2t[2], g2t[3])),
+        delta=int(str(d["delta"])), instance_size=int(d["instance_size"]),
+    )
+
+
+def save_pk(pk: ProvingKey, path: str):
+    """The proving key's three coefficient arrays. The assembly is not
+    stored: it is a pure function of the circuit, and load_pk re-derives
+    it."""
+    np.savez_compressed(
+        path,
+        fixed_coeffs=F.to_numpy(pk.fixed_coeffs),
+        sigma_coeffs=F.to_numpy(pk.sigma_coeffs),
+        sigma_vals=F.to_numpy(pk.sigma_vals),
+        delta=str(pk.vk.delta), k=pk.vk.k,
+    )
+
+
+def load_pk(path: str, vk: VerifyingKey, circuit_fn, example_inputs,
+            device="cuda") -> ProvingKey:
+    """Read a pk written by save_pk here or by the JAX package. Only the
+    coefficient arrays are read (no pickle is loaded: a JAX-written pk's
+    ``asm_blob`` is skipped); the assembly is re-derived from the
+    circuit."""
+    k, arrays = proving_key_arrays(path, device)
+    asm = assemble(trace_layout(circuit_fn, example_inputs), k)
+    return ProvingKey(vk=vk, asm=asm, **arrays)

@@ -1,0 +1,145 @@
+"""Command line of the PyTorch port: mock / keygen (prove / verify to come).
+
+    python -m zkfhe_tpu_torch --name bfv -k 13 --input bfv/bfv.in mock
+    python -m zkfhe_tpu_torch --name bfv -k 13 --input bfv/bfv_empty.in keygen
+
+Same flags and artifact files as ``python -m zkfhe_tpu``: configs/{name}.json,
+params/kzg_bn254_{k}[.lag].npz (read), data/{name}.vk.npz and
+data/{name}.pk.npz (written by keygen). ``--device`` picks the torch device
+(default ``cuda``).
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import sys
+import time
+
+MOCK_GAMMA = 0x6D6F636B  # the mock verb's fixed challenge ("mock")
+
+
+def _stage(name, t0):
+    dt = time.time() - t0
+    print(f"[zkfhe] {name}: {dt:.3f}s", flush=True)
+    return time.time()
+
+
+def build_parser():
+    p = argparse.ArgumentParser(prog="zkfhe_tpu_torch")
+    p.add_argument("--name", required=True, help="circuit artifact name")
+    p.add_argument("-k", "--degree", type=int, default=13,
+                   help="log2 of the number of rows")
+    p.add_argument("--input", required=True,
+                   help="input JSON path relative to data/")
+    p.add_argument("--config-path", default="configs")
+    p.add_argument("--data-path", default="data")
+    p.add_argument("--params-path", default="params")
+    p.add_argument("--n", type=int, default=1024, help="BFV ring degree N")
+    p.add_argument("--q", type=int, default=536870909, help="BFV modulus Q")
+    p.add_argument("--t", type=int, default=7, help="BFV plaintext modulus T")
+    p.add_argument("--b", type=int, default=19, help="BFV noise bound B")
+    p.add_argument("--device", default="cuda",
+                   help="torch device for the device work (cuda or cpu)")
+    p.add_argument("command", choices=["mock", "keygen", "prove", "verify"])
+    return p
+
+
+def trace_digest(arrays) -> str:
+    """blake2b-256 over (shape as int64 LE, limbs as uint32 LE) of each
+    (20, m) limb array in order: a compact identity of a trace."""
+    import numpy as np
+    from .ops import field as F
+    h = hashlib.blake2b(digest_size=32)
+    for a in arrays:
+        a = F.to_numpy(a)
+        h.update(np.asarray(a.shape, dtype="<i8").tobytes())
+        h.update(np.ascontiguousarray(a.astype("<u4")).tobytes())
+    return h.hexdigest()
+
+
+def main(argv=None, out: dict | None = None):
+    """Run one verb; returns the exit code. If `out` is a dict, the verb's
+    results (cell counts, digests) are stored in it."""
+    args = build_parser().parse_args(argv)
+    out = {} if out is None else out
+    if args.command in ("prove", "verify"):
+        print(f"[zkfhe] {args.command}: not ported yet (use python -m "
+              f"zkfhe_tpu)", file=sys.stderr)
+        return 2
+
+    import torch
+    from .backend import keygen as KG
+    from .backend import srs as SRS
+    from .models import bfv
+    from .ops import field as F
+    from .trace import compile as TC
+
+    device = torch.device(args.device)
+    t0 = time.time()
+    params = bfv.BfvParams(n=args.n, q=args.q, t=args.t, b=args.b)
+    cfg_file = os.path.join(args.config_path, f"{args.name}.json")
+    if args.command == "mock" and os.path.exists(cfg_file):
+        with open(cfg_file) as f:
+            bp = json.load(f).get("bfv_params")
+        if bp:
+            params = bfv.BfvParams(**bp)
+
+    cin = bfv.CircuitInput.from_json(os.path.join(args.data_path, args.input))
+    inputs = cin.to_arrays(params, device)
+    circuit = bfv.make_bfv_circuit(params)
+    t0 = _stage("load input + build circuit", t0)
+
+    if args.command == "mock":
+        gamma = F.tensor(F.encode(F.FR, [MOCK_GAMMA])[:, 0], device)
+        bld, values, instance = TC.run_circuit(circuit, inputs, gamma)
+        layout = TC.snapshot_layout(bld)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = _stage("witness generation + layout", t0)
+        res = TC.mock_check(layout, values, gamma)
+        nbad = sum(len(v) for v in res.values())
+        t0 = _stage("constraint evaluation", t0)
+        out.update(cells=int(sum(layout.sizes)),
+                   sizes=[int(s) for s in layout.sizes],
+                   public_values=int(layout.num_instance), violations=nbad,
+                   trace_digest=trace_digest(list(values) + [instance]))
+        if nbad:
+            print(f"[zkfhe] MOCK FAILED: {nbad} violations")
+            return 1
+        print(f"[zkfhe] mock OK: {out['cells']} cells, "
+              f"{out['public_values']} public values, trace digest "
+              f"{out['trace_digest']}")
+        return 0
+
+    srs = SRS.load_or_generate(args.degree, args.params_path, device)
+    t0 = _stage("srs", t0)
+    vk_path = os.path.join(args.data_path, f"{args.name}.vk.npz")
+    pk_path = os.path.join(args.data_path, f"{args.name}.pk.npz")
+
+    stages = {}
+    pk = KG.keygen(circuit, inputs, args.degree, srs, stages=stages)
+    for name, dt in stages.items():
+        print(f"[zkfhe]   keygen {name}: {dt:.3f}s")
+    t0 = _stage("keygen", t0)
+    os.makedirs(args.config_path, exist_ok=True)
+    os.makedirs(args.data_path, exist_ok=True)
+    cfg = pk.asm.config_json()
+    cfg["bfv_params"] = {"n": params.n, "q": params.q,
+                         "t": params.t, "b": params.b}
+    with open(cfg_file, "w") as f:
+        json.dump(cfg, f, indent=1)
+    KG.save_vk(pk.vk, vk_path)
+    KG.save_pk(pk, pk_path)
+    _stage("write artifacts", t0)
+    out.update(vk_digest=KG.vk_digest(pk.vk).hex(),
+               num_fixed=len(pk.vk.fixed_commits),
+               num_sigma=len(pk.vk.sigma_commits))
+    print(f"[zkfhe] keygen OK -> {cfg_file}, {vk_path}, {pk_path}; "
+          f"vk digest {out['vk_digest']}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,388 @@
+"""BN254 G1/G2 elliptic-curve arithmetic (port of zkfhe_tpu/ops/curve.py).
+
+Two layers:
+  * Host reference (`AffinePoint`, python ints) — exact ground truth for
+    tests, SRS generation bootstrap, and the (small) verifier-side math.
+  * Device layer — Jacobian points as limb arrays (`field.py` SoA layout,
+    Montgomery form of Fq), branchless complete add/double via selects,
+    vectorized over arbitrary batch shapes. These feed the table MSM
+    (ops/msm.py).
+
+Curve: y^2 = x^3 + 3 over Fq; G1 generator (1, 2).
+G2: y^2 = x^3 + 3/(9+u) over Fq2 = Fq[u]/(u^2+1) (host-side only; the
+verifying key carries G2 points).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import field as F
+from .field import FQ, FR
+
+B_COEFF = 3
+
+# BN254 G2 generator (standard constants).
+G2_X = (
+    10857046999023057135944570762232829481370756359578518086990519993285655852781,
+    11559732032986387107991004021392285783925812861821192530917403151452391805634,
+)
+G2_Y = (
+    8495653923123431417604973247489272438418190587263600148770280649306958101930,
+    4082367875863433681332203403145435568316851327593401208105741076214120093531,
+)
+
+
+# ---------------------------------------------------------------------------
+# Host reference implementation (python ints, affine coordinates)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AffinePoint:
+    """G1 point in affine coordinates over Fq; None coords = infinity."""
+
+    x: int | None = None
+    y: int | None = None
+
+    @property
+    def infinity(self) -> bool:
+        return self.x is None
+
+    def on_curve(self) -> bool:
+        if self.infinity:
+            return True
+        p = FQ.p
+        return (self.y * self.y - self.x**3 - B_COEFF) % p == 0
+
+    def neg(self) -> "AffinePoint":
+        if self.infinity:
+            return self
+        return AffinePoint(self.x, (-self.y) % FQ.p)
+
+    def add(self, other: "AffinePoint") -> "AffinePoint":
+        p = FQ.p
+        if self.infinity:
+            return other
+        if other.infinity:
+            return self
+        if self.x == other.x:
+            if (self.y + other.y) % p == 0:
+                return AffinePoint()
+            lam = (3 * self.x * self.x) * pow(2 * self.y, p - 2, p) % p
+        else:
+            lam = (other.y - self.y) * pow(other.x - self.x, p - 2, p) % p
+        x3 = (lam * lam - self.x - other.x) % p
+        y3 = (lam * (self.x - x3) - self.y) % p
+        return AffinePoint(x3, y3)
+
+    def mul(self, k: int) -> "AffinePoint":
+        k %= FR.p
+        acc, base = AffinePoint(), self
+        while k:
+            if k & 1:
+                acc = acc.add(base)
+            base = base.add(base)
+            k >>= 1
+        return acc
+
+
+G1_GEN = AffinePoint(1, 2)
+
+
+# Host Jacobian arithmetic (python ints, None = infinity). The verifier's
+# commitment combination runs through these — per-add modular inversions
+# (AffinePoint.add) are ~20x slower, and the verifier must not depend on
+# device kernels at all (fresh XLA compiles per verify, VERDICT round-1
+# weak #2).
+
+def jac_double(P, p: int = None):
+    if P is None:
+        return None
+    p = p or FQ.p
+    X, Y, Z = P
+    A = X * X % p
+    B = Y * Y % p
+    CC = B * B % p
+    D = 2 * ((X + B) * (X + B) - A - CC) % p
+    E = 3 * A % p
+    X3 = (E * E - 2 * D) % p
+    Y3 = (E * (D - X3) - 8 * CC) % p
+    Z3 = 2 * Y * Z % p
+    return (X3, Y3, Z3)
+
+
+def jac_add_affine(P, q: "AffinePoint", p: int = None):
+    """Jacobian + affine mixed addition."""
+    if q.infinity:
+        return P
+    if P is None:
+        return (q.x, q.y, 1)
+    p = p or FQ.p
+    X1, Y1, Z1 = P
+    Z1Z1 = Z1 * Z1 % p
+    U2 = q.x * Z1Z1 % p
+    S2 = q.y * Z1 % p * Z1Z1 % p
+    H = (U2 - X1) % p
+    r = 2 * (S2 - Y1) % p
+    if H == 0:
+        return jac_double(P, p) if r == 0 else None
+    HH = H * H % p
+    I = 4 * HH % p
+    J = H * I % p
+    V = X1 * I % p
+    X3 = (r * r - J - 2 * V) % p
+    Y3 = (r * (V - X3) - 2 * Y1 * J) % p
+    Z3 = ((Z1 + H) * (Z1 + H) - Z1Z1 - HH) % p
+    return (X3, Y3, Z3)
+
+
+def jac_add(P, Q, p: int = None):
+    if P is None:
+        return Q
+    if Q is None:
+        return P
+    p = p or FQ.p
+    X1, Y1, Z1 = P
+    X2, Y2, Z2 = Q
+    Z1Z1 = Z1 * Z1 % p
+    Z2Z2 = Z2 * Z2 % p
+    U1 = X1 * Z2Z2 % p
+    U2 = X2 * Z1Z1 % p
+    S1 = Y1 * Z2 % p * Z2Z2 % p
+    S2 = Y2 * Z1 % p * Z1Z1 % p
+    H = (U2 - U1) % p
+    r = 2 * (S2 - S1) % p
+    if H == 0:
+        return jac_double(P, p) if r == 0 else None
+    I = 4 * H * H % p
+    J = H * I % p
+    V = U1 * I % p
+    X3 = (r * r - J - 2 * V) % p
+    Y3 = (r * (V - X3) - 2 * S1 * J) % p
+    Z3 = ((Z1 + Z2) * (Z1 + Z2) - Z1Z1 - Z2Z2) * H % p
+    return (X3, Y3, Z3)
+
+
+def jac_to_affine(P, p: int = None) -> "AffinePoint":
+    if P is None:
+        return AffinePoint()
+    p = p or FQ.p
+    X, Y, Z = P
+    zi = pow(Z, p - 2, p)
+    zi2 = zi * zi % p
+    return AffinePoint(X * zi2 % p, Y * zi2 % p * zi % p)
+
+
+# ---------------------------------------------------------------------------
+# Device layer: Jacobian points as limb tensors, Montgomery-form Fq.
+# A point batch is a tuple (X, Y, Z), each (L, *batch) int32; Z == 0
+# encodes infinity.
+# ---------------------------------------------------------------------------
+
+def encode_points(pts: list[AffinePoint], mont: bool = True,
+                  device="cpu") -> tuple:
+    """Host: affine points -> device Jacobian tensors (X, Y, Z), (L, n)."""
+    xs, ys, zs = [], [], []
+    for pt in pts:
+        if pt.infinity:
+            xs.append(1)
+            ys.append(1)
+            zs.append(0)
+        else:
+            xs.append(pt.x)
+            ys.append(pt.y)
+            zs.append(1)
+    return tuple(F.tensor(F.encode(FQ, v, mont=mont), device)
+                 for v in (xs, ys, zs))
+
+
+def decode_points(P, mont: bool = True) -> list[AffinePoint]:
+    """Host: Jacobian limb arrays -> affine points (exact, python ints)."""
+    X, Y, Z = (F.to_numpy(c) for c in P)
+    xs = F.decode(FQ, X, mont=mont)
+    ys = F.decode(FQ, Y, mont=mont)
+    zs = F.decode(FQ, Z, mont=mont)
+    out = []
+    p = FQ.p
+    for x, y, z in zip(xs, ys, zs):
+        if z == 0:
+            out.append(AffinePoint())
+        else:
+            zinv = pow(z, p - 2, p)
+            out.append(AffinePoint(x * zinv**2 % p, y * zinv**3 % p))
+    return out
+
+
+def infinity_like(shape=(), device="cpu") -> tuple:
+    """Identity points of the given batch shape (Montgomery form)."""
+    one = F.const(FQ, FQ.to_mont_int(1), shape, device)
+    return one, one, F.zero(shape, device)
+
+
+def point_neg(P):
+    X, Y, Z = P
+    return X, F.neg(FQ, Y), Z
+
+
+def point_double(P):
+    """Jacobian doubling (a=0 curve), branch-free. ~7 muls."""
+    X, Y, Z = P
+    f = FQ
+    A = F.mont_sqr(f, X)
+    Bs = F.mont_sqr(f, Y)
+    C = F.mont_sqr(f, Bs)
+    t = F.mont_sqr(f, F.add(f, X, Bs))
+    D = F.double(f, F.sub(f, F.sub(f, t, A), C))
+    E = F.add(f, F.double(f, A), A)  # 3A
+    Fv = F.mont_sqr(f, E)
+    X3 = F.sub(f, Fv, F.double(f, D))
+    eightC = F.double(f, F.double(f, F.double(f, C)))
+    Y3 = F.sub(f, F.mont_mul(f, E, F.sub(f, D, X3)), eightC)
+    Z3 = F.double(f, F.mont_mul(f, Y, Z))
+    return X3, Y3, Z3
+
+
+def point_add(P, Q):
+    """Complete Jacobian + Jacobian addition via selects (~16 muls).
+    Handles P=inf, Q=inf, P=Q (double), P=-Q (infinity) branchlessly."""
+    f = FQ
+    X1, Y1, Z1 = P
+    X2, Y2, Z2 = Q
+
+    Z1Z1 = F.mont_sqr(f, Z1)
+    Z2Z2 = F.mont_sqr(f, Z2)
+    U1 = F.mont_mul(f, X1, Z2Z2)
+    U2 = F.mont_mul(f, X2, Z1Z1)
+    S1 = F.mont_mul(f, Y1, F.mont_mul(f, Z2, Z2Z2))
+    S2 = F.mont_mul(f, Y2, F.mont_mul(f, Z1, Z1Z1))
+    H = F.sub(f, U2, U1)
+    Rr = F.double(f, F.sub(f, S2, S1))
+
+    HH = F.mont_sqr(f, F.double(f, H))  # I = (2H)^2
+    J = F.mont_mul(f, H, HH)
+    V = F.mont_mul(f, U1, HH)
+    X3 = F.sub(f, F.sub(f, F.mont_sqr(f, Rr), J), F.double(f, V))
+    Y3 = F.sub(
+        f,
+        F.mont_mul(f, Rr, F.sub(f, V, X3)),
+        F.double(f, F.mont_mul(f, S1, J)),
+    )
+    Z3 = F.mont_mul(
+        f,
+        F.sub(f, F.sub(f, F.mont_sqr(f, F.add(f, Z1, Z2)), Z1Z1), Z2Z2),
+        H,
+    )
+
+    p_inf = F.is_zero(Z1)
+    q_inf = F.is_zero(Z2)
+    h_zero = F.is_zero(H)
+    r_zero = F.is_zero(Rr)
+    both_live = ~p_inf & ~q_inf
+    is_double = both_live & h_zero & r_zero  # same point
+    is_inf_out = both_live & h_zero & ~r_zero  # P = -Q
+
+    dX, dY, dZ = point_double(P)
+    iX, iY, iZ = infinity_like(X3.shape[1:], X3.device)
+
+    X3 = F.select(q_inf, X1, F.select(p_inf, X2, X3))
+    Y3 = F.select(q_inf, Y1, F.select(p_inf, Y2, Y3))
+    Z3 = F.select(q_inf, Z1, F.select(p_inf, Z2, Z3))
+    X3 = F.select(is_double, dX, F.select(is_inf_out, iX, X3))
+    Y3 = F.select(is_double, dY, F.select(is_inf_out, iY, Y3))
+    Z3 = F.select(is_double, dZ, F.select(is_inf_out, iZ, Z3))
+    return X3, Y3, Z3
+
+
+def point_add_mixed(P, Q_aff):
+    """Jacobian + affine addition (~11 muls) with completeness selects.
+    Q_aff = (x, y, nz): nz is 1 (any encoding) for live points, 0 for
+    infinity (the Z slot reused as a validity flag)."""
+    f = FQ
+    X1, Y1, Z1 = P
+    X2, Y2, NZ2 = Q_aff
+
+    Z1Z1 = F.mont_sqr(f, Z1)
+    U2 = F.mont_mul(f, X2, Z1Z1)
+    S2 = F.mont_mul(f, Y2, F.mont_mul(f, Z1, Z1Z1))
+    H = F.sub(f, U2, X1)
+    HH = F.mont_sqr(f, H)
+    I = F.double(f, F.double(f, HH))
+    J = F.mont_mul(f, H, I)
+    Rr = F.double(f, F.sub(f, S2, Y1))
+    V = F.mont_mul(f, X1, I)
+    X3 = F.sub(f, F.sub(f, F.mont_sqr(f, Rr), J), F.double(f, V))
+    Y3 = F.sub(
+        f,
+        F.mont_mul(f, Rr, F.sub(f, V, X3)),
+        F.double(f, F.mont_mul(f, Y1, J)),
+    )
+    Z3 = F.sub(f, F.sub(f, F.mont_sqr(f, F.add(f, Z1, H)), Z1Z1), HH)
+
+    p_inf = F.is_zero(Z1)
+    q_inf = F.is_zero(NZ2)
+    h_zero = F.is_zero(H)
+    r_zero = F.is_zero(Rr)
+    both_live = ~p_inf & ~q_inf
+    is_double = both_live & h_zero & r_zero
+    is_inf_out = both_live & h_zero & ~r_zero
+
+    dX, dY, dZ = point_double(P)
+    shape, dev = X3.shape[1:], X3.device
+    iX, iY, iZ = infinity_like(shape, dev)
+    one_m = F.const(FQ, FQ.to_mont_int(1), shape, dev)
+
+    X3 = F.select(q_inf, X1, F.select(p_inf, X2, X3))
+    Y3 = F.select(q_inf, Y1, F.select(p_inf, Y2, Y3))
+    Z3 = F.select(q_inf, Z1, F.select(p_inf, one_m, Z3))
+    X3 = F.select(is_double, dX, F.select(is_inf_out, iX, X3))
+    Y3 = F.select(is_double, dY, F.select(is_inf_out, iY, Y3))
+    Z3 = F.select(is_double, dZ, F.select(is_inf_out, iZ, Z3))
+    return X3, Y3, Z3
+
+
+def to_affine_xy(P):
+    """Jacobian batch -> affine (X, Y) Montgomery arrays. Infinity lanes
+    map to (0, 0)."""
+    X, Y, Z = P
+    zinv = F.batch_inv(FQ, Z)
+    z2 = F.mont_mul(FQ, zinv, zinv)
+    z3 = F.mont_mul(FQ, z2, zinv)
+    ax = F.mont_mul(FQ, X, z2)
+    ay = F.mont_mul(FQ, Y, z3)
+    inf = F.is_zero(Z)
+    zero = F.zero(X.shape[1:], X.device)
+    return F.select(inf, zero, ax), F.select(inf, zero, ay)
+
+
+def _pad_last(x, fill):
+    """Append one lane `fill` (broadcast) along the last axis."""
+    return torch.cat([x, fill.expand(x.shape[:-1] + (1,))], dim=-1)
+
+
+def tree_reduce_points_halves(P, first_mixed: bool = False):
+    """Sum a Jacobian point batch along the LAST axis via log2(n) levels of
+    contiguous half-vs-half complete adds. Odd levels are evened out by
+    appending one infinity lane.
+
+    first_mixed: the inputs are affine-with-flag points (Z is exactly 0 or
+    Montgomery 1), so level 0 can use the cheaper mixed add.
+    """
+    X, Y, Z = P
+    first = first_mixed
+    while X.shape[-1] > 1:
+        m = X.shape[-1]
+        if m % 2:
+            iX, iY, iZ = infinity_like(X.shape[1:-1] + (1,), X.device)
+            X, Y, Z = _pad_last(X, iX), _pad_last(Y, iY), _pad_last(Z, iZ)
+            m += 1
+        h = m // 2
+        lo = (X[..., :h], Y[..., :h], Z[..., :h])
+        hi = (X[..., h:], Y[..., h:], Z[..., h:])
+        if first:
+            X, Y, Z = point_add_mixed(lo, hi)
+            first = False
+        else:
+            X, Y, Z = point_add(lo, hi)
+    return X[..., 0], Y[..., 0], Z[..., 0]
+
