@@ -5,31 +5,46 @@
 Phases, each printed with its time; any failure exits non-zero:
 
 1. device: require CUDA; print the card's name and power limit;
-2. build: compile zkfhe_tpu_torch/csrc/field_kernels.cu with nvcc;
-3. kernels: each field kernel (mont_mul, add, sub, bfly_dif), for Fr and
-   Fq, through its wrapper (field.mont_mul/add/sub, field_kernels.bfly_dif)
-   against its plain PyTorch version on the card, on 2^20+1 random lanes
-   plus the edge values 0, 1, p-1 and R mod p: exact equality;
-4. mock: ``cli.main`` mock of data/bfv/bfv.in at k=13: 0 violations, 5121
+2. build: compile zkfhe_tpu_torch/csrc/field_kernels.cu with nvcc and
+   native/zkfhe_native.cc (the verifier's host core) with g++, at once;
+3. kernels: each field kernel (mont_mul, add, sub, bfly_dif, bfly), for Fr
+   and Fq, through its wrapper (field.mont_mul/add/sub,
+   field_kernels.bfly_dif/bfly) against its plain PyTorch version on the
+   card, on 2^20+1 random lanes plus the edge values 0, 1, p-1 and R mod p:
+   exact equality;
+4. matmul: ``mxu_field.mat_mul_mont`` (7-bit limb planes, float64 product)
+   against its plain mont_mul + tree-sum chain at the prover's evaluation
+   shape (20, 128, 8192) x (20, 8192, 5) and its SHPLONK fold shape
+   (20, 1, 64) x (20, 64, 8192): exact equality; then both timed;
+5. mock: ``cli.main`` mock of data/bfv/bfv.in at k=13: 0 violations, 5121
    public values, cell count and trace digest equal to the JAX package's
    (tests/fixtures/torch_reference_k13.json);
-5. keygen: ``cli.main`` keygen of bfv/bfv_empty.in at k=13 into a
+6. keygen: ``cli.main`` keygen of bfv/bfv_empty.in at k=13 into a
    temporary directory: vk digest equal to the JAX package's;
-6. timing: each kernel's wrapper again, at the shape and field of its
-   largest launch in phases 4-5, on fresh random inputs, held to its plain
-   version there too (exact equality), then timed with its plain version;
-   plus one NTT of the same lanes through ``ntt.ntt``, whose time per
-   stage shows what the stage's copies around ``bfly_dif`` cost;
-7. the ``kernels`` JSON line: per kernel, its launches in phases 4-5 (each
-   must be > 0), its largest mismatch over phases 3 and 6, its time, its
-   plain version's time and its bound.
+7. prove: ``cli.main`` prove of bfv/bfv.in at k=13 with that vk and pk;
+   the prover's stage times and the proof's length are printed, and the
+   length must equal the fixture's ``proof_len``;
+8. verify: ``cli.main`` verify of that proof returns 0, and non-zero with
+   one byte of the proof flipped and with one public value changed;
+9. timing: each kernel's wrapper again, at the shape and field of its
+   largest launch in phases 5-7 (bfly, which no module calls, at
+   bfly_dif's), on fresh random inputs, held to its plain version there
+   too (exact equality), then timed with its plain version; plus one NTT
+   of the same lanes through ``ntt.ntt``, whose time per stage shows what
+   the stage's copies around ``bfly_dif`` cost;
+10. the ``matmul`` and ``kernels`` JSON lines: per kernel, its launches in
+   phases 5-7 (each must be > 0 in each phase; bfly's launches are those
+   of its check in phase 3), its largest mismatch over phases 3 and 9, its
+   time, its plain version's time and its bound.
 
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
-``python3 chip_smoke.py --profile`` also prints, for mock and keygen, the
-device busy share and the kernels that took the most device time.
+``python3 chip_smoke.py --profile`` also prints, for mock, keygen and
+prove, the device busy share and the kernels that took the most device
+time; ``--save-proof PATH`` keeps a copy of the verified k=13 snark.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import shutil
@@ -37,6 +52,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -44,11 +60,13 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_reference_k13.json")
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the non-tensor-core
-# 32-bit rate. There is no int32 row in the data sheet; Hopper issues IMAD
-# at half the FP32 rate, so bounds from 67 T op/s are generous by up to 2x.
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, the non-tensor-core
+# 32-bit rate and the dense int8 tensor-core rate. There is no int32 row in
+# the data sheet; Hopper issues IMAD at half the FP32 rate, so bounds from
+# 67 T op/s are generous by up to 2x.
 HBM_BPS = 3.35e12
 INT32_OPS = 67e12
+INT8_TC_OPS = 1979e12
 
 # What each kernel reads and writes per lane (80 B per field element), the
 # integer operations it does per lane (a multiply-add counts 2), and the
@@ -62,7 +80,15 @@ KERNELS = {
                 replaces="zkfhe_tpu/ops/pallas_field.py:168"),
     "bfly_dif": dict(bytes=400, ops=2240,
                      replaces="zkfhe_tpu/ops/pallas_field.py:193"),
+    "bfly": dict(bytes=400, ops=2240,
+                 replaces="zkfhe_tpu/ops/pallas_field.py:177"),
 }
+BUTTERFLIES = ("bfly_dif", "bfly")
+# the prover's mat_mul_mont shapes: (M, K, N) of its evaluation matmul
+# (EV_CHUNK polys x n coefficients x 5 rotations) and of a SHPLONK fold
+# (one row of CB weights x CB polys x n coefficients)
+MATMUL_SHAPES = {"evaluations": (128, 8192, 5), "shplonk fold": (1, 64, 8192)}
+MATMUL_REPLACES = "zkfhe_tpu/ops/mxu_field.py:125"
 SOURCE = "zkfhe_tpu_torch/csrc/field_kernels.cu"
 
 # a failed check is recorded and the run goes on, so that one run reports
@@ -71,6 +97,20 @@ FAILURES = []
 # --profile: run mock and keygen under torch.profiler (diagnostic; the
 # profiler's own overhead inflates the wall times it reports)
 PROFILE = "--profile" in sys.argv[1:]
+# --save-proof PATH: copy the verified k=13 snark (proof + instance) there
+SAVE_PROOF = (sys.argv[sys.argv.index("--save-proof") + 1]
+              if "--save-proof" in sys.argv[1:] else None)
+
+
+def attempt(name, fn, *a, **kw):
+    """Run one phase; an exception is printed and recorded as a failure
+    (the script then exits 1), so that one run reports every phase."""
+    try:
+        return fn(*a, **kw)
+    except Exception:  # noqa: BLE001  (reported, and the run fails)
+        traceback.print_exc()
+        FAILURES.append(f"{name} raised")
+        return None
 
 
 def phase(name):
@@ -99,9 +139,12 @@ def check_device():
     return smi
 
 
-@phase("build")
-def build_kernels(K):
-    path = K.build()
+@phase("build (nvcc and g++ in parallel)")
+def build_kernels(K, NAT):
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        futs = [pool.submit(K.build), pool.submit(NAT.get_lib)]
+        path = futs[0].result()
+        futs[1].result()
     log = K.BUILD_LOG.get("output", "(cached build)")
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
@@ -130,14 +173,14 @@ def with_edges(F, field, x, y, dev):
 
 def run_kernel(F, K, name, field, args):
     """The kernel through the wrapper the port's modules call."""
-    if name == "bfly_dif":
-        return K.bfly_dif(field, *args)
+    if name in BUTTERFLIES:
+        return getattr(K, name)(field, *args)
     return (getattr(F, name)(field, *args),)
 
 
 def run_plain(K, name, field, args):
-    if name == "bfly_dif":
-        return K.plain_bfly_dif(field, *args)
+    if name in BUTTERFLIES:
+        return getattr(K, "plain_" + name)(field, *args)
     return ({"mont_mul": K.plain_mont_mul, "add": K.plain_add,
              "sub": K.plain_sub}[name](field, *args),)
 
@@ -152,13 +195,14 @@ def check_kernels(F, K, dev):
     rng = np.random.default_rng(0)
     lanes = (1 << 20) + 1
     errs = {}
+    K.reset_counts()
     for field in (F.FR, F.FQ):
         x = random_canonical(rng, lanes, dev)
         y = random_canonical(rng, lanes, dev)
         z = random_canonical(rng, lanes, dev)
         with_edges(F, field, x, y, dev)
         for name in KERNELS:
-            args = (x, y, z) if name == "bfly_dif" else (x, y)
+            args = (x, y, z) if name in BUTTERFLIES else (x, y)
             got = run_kernel(F, K, name, field, args)
             torch.cuda.synchronize()
             err = max_err(got, run_plain(K, name, field, args))
@@ -168,7 +212,7 @@ def check_kernels(F, K, dev):
             if err:
                 FAILURES.append(f"kernel {name} ({field.name}) disagrees "
                                 f"with its plain version")
-    return errs
+    return errs, dict(K.LAUNCHES)
 
 
 def time_ms(fn, reps=20):
@@ -184,6 +228,45 @@ def time_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+@phase("matmul vs plain chain at the prover's shapes: check and time")
+def check_matmul(F, MX, dev):
+    """mat_mul_mont against its plain chain (exact), then both timed and
+    the bare plane product (the library call inside it)."""
+    rng = np.random.default_rng(2)
+    out = {}
+    for label, (M, Kd, N) in MATMUL_SHAPES.items():
+        A = random_canonical(rng, (20, M, Kd), dev)
+        B = random_canonical(rng, (20, Kd, N), dev)
+        got = MX.mat_mul_mont(F.FR, A, B)
+        want = MX.plain_mat_mul_mont(F.FR, A, B)
+        err = max_err((got,), (want,))
+        if err:
+            FAILURES.append(f"mat_mul_mont disagrees with its plain chain "
+                            f"at {label} {(M, Kd, N)}")
+        ms = time_ms(lambda: MX.mat_mul_mont(F.FR, A, B), reps=10)
+        plain_ms = time_ms(lambda: MX.plain_mat_mul_mont(F.FR, A, B),
+                           reps=2)
+        # the bare library product (float64 torch.matmul of the planes)
+        lhs = MX.to_planes7(A).permute(1, 0, 2).reshape(
+            M * MX.NPLANES, Kd).to(torch.float64)
+        rhs = MX.to_planes7(B).permute(1, 0, 2).reshape(
+            Kd, MX.NPLANES * N).to(torch.float64)
+        product_ms = time_ms(lambda: torch.matmul(lhs, rhs), reps=10)
+        t_bytes = (M * Kd + Kd * N + M * N) * 80 / HBM_BPS * 1e3
+        t_ops = (2 * (M * MX.NPLANES) * Kd * (MX.NPLANES * N)
+                 / INT8_TC_OPS * 1e3)
+        out[label] = dict(shape=[M, Kd, N], max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, product_ms=product_ms,
+                          bound_ms=max(t_bytes, t_ops),
+                          bound_by="bytes" if t_bytes >= t_ops
+                          else "operations")
+        print(f"[smoke]   mat_mul_mont {label} {(M, Kd, N)}: max |planes - "
+              f"plain| = {err}; {ms:.4f} ms (float64 plane product "
+              f"{product_ms:.4f} ms), plain {plain_ms:.3f} ms, bound "
+              f"{out[label]['bound_ms']:.4f} ms ({out[label]['bound_by']})")
+    return out
+
+
 @phase("kernels at the main path's largest shapes: check and time")
 def time_kernels(F, K, N, dev, largest, errs):
     rng = np.random.default_rng(1)
@@ -191,7 +274,7 @@ def time_kernels(F, K, N, dev, largest, errs):
     for name, (shape, field) in largest.items():
         lanes = shape.numel() // F.NLIMBS
         x, y, z = (random_canonical(rng, shape, dev) for _ in range(3))
-        args = (x, y, z) if name == "bfly_dif" else (x, y)
+        args = (x, y, z) if name in BUTTERFLIES else (x, y)
         got = run_kernel(F, K, name, field, args)
         err = max_err(got, run_plain(K, name, field, args))
         errs[name] = max(errs[name], err)
@@ -241,7 +324,40 @@ def profile_report(prof, wall_s, name):
         print(f"[profile]   {us / 1e3:10.3f} ms {n:7d}x  {kname[:90]}")
 
 
-def drive(K, cli, argv, name):
+def profile_prove_proper(dev, data_dir, params_dir):
+    """--profile only: PV.prove of bfv.in twice with one loaded pk; the
+    second, which finds the pk's static cosets cached (steady state), runs
+    under the profiler, so its busy share excludes the verb's host-side
+    loading."""
+    from zkfhe_tpu_torch.backend import keygen as KG
+    from zkfhe_tpu_torch.backend import prover as PV
+    from zkfhe_tpu_torch.backend import srs as SRS
+    from zkfhe_tpu_torch.models import bfv
+    params = bfv.BfvParams()
+    inputs = bfv.CircuitInput.from_json(
+        os.path.join(data_dir, "bfv", "bfv.in")).to_arrays(params, dev)
+    circuit = bfv.make_bfv_circuit(params)
+    srs = SRS.load_or_generate(13, params_dir, dev)
+    pk = KG.load_pk(os.path.join(data_dir, "bfv.pk.npz"),
+                    KG.load_vk(os.path.join(data_dir, "bfv.vk.npz")),
+                    circuit, inputs, device=dev)
+    t0 = time.time()
+    PV.prove(pk, srs, circuit, inputs, rng_seed=b"smoke-1")
+    torch.cuda.synchronize()
+    print(f"[profile] first prove with this pk: {time.time() - t0:.3f}s "
+          f"{PV.LAST_STAGES}")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.time()
+        PV.prove(pk, srs, circuit, inputs, rng_seed=b"smoke-2")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    print(f"[profile] second prove: {wall:.3f}s {PV.LAST_STAGES}")
+    profile_report(prof, wall, "prove proper (second prove, same pk)")
+
+
+def drive(K, MX, cli, argv, name):
     """One CLI verb with the launch counts set to 0 just before it and read
     just after; returns (result dict, counts, the (shape, field) of each
     kernel's largest launch). With
@@ -250,6 +366,7 @@ def drive(K, cli, argv, name):
     res = {}
     torch.cuda.synchronize()
     K.reset_counts()
+    MX.reset_counts()
     prof = None
     if PROFILE:
         acts = [torch.profiler.ProfilerActivity.CPU,
@@ -265,6 +382,7 @@ def drive(K, cli, argv, name):
         if prof is not None:
             prof.__exit__(None, None, None)
     counts, largest = dict(K.LAUNCHES), dict(K.LARGEST)
+    counts.update(MX.LAUNCHES)
     print(f"[smoke] {name}: {wall:.3f}s rc={rc} "
           f"launches={counts}", flush=True)
     if prof is not None:
@@ -274,24 +392,55 @@ def drive(K, cli, argv, name):
     return res, counts, largest
 
 
+def check_verify(cli, base, snark, ref):
+    """verify of the proof; then of a proof with one byte flipped and of
+    one with a public value changed, each of which must fail."""
+    data = dict(np.load(snark))
+    res = {}
+    rc = cli.main(base + ["verify"], out=res)
+    print(f"[smoke] verify: rc={rc} {res}")
+    if rc != 0 or res.get("verified") is not True:
+        FAILURES.append(f"verify of the port's proof returned {rc}")
+    tampered = []
+    proof = data["proof"].copy()
+    proof[len(proof) // 2] ^= 1
+    tampered.append(("one proof byte flipped", dict(data, proof=proof)))
+    inst = data["instance"].copy()
+    inst[0] = str(int(inst[0]) + 1)
+    tampered.append(("one public value changed", dict(data, instance=inst)))
+    for label, arrays in tampered:
+        np.savez_compressed(snark, **arrays)
+        rc = cli.main(base + ["verify"])
+        print(f"[smoke] verify with {label}: rc={rc}")
+        if rc == 0:
+            FAILURES.append(f"verify accepted a proof with {label}")
+    np.savez_compressed(snark, **data)
+    if len(data["proof"]) != ref["proof_len"]:
+        FAILURES.append(f"proof length {len(data['proof'])} != the JAX "
+                        f"protocol's {ref['proof_len']}")
+
+
 def main():
     t_all = time.time()
     smi = check_device()
     dev = torch.device("cuda")
     from zkfhe_tpu_torch import cli
+    from zkfhe_tpu_torch import native as NAT
     from zkfhe_tpu_torch.ops import field as F
     from zkfhe_tpu_torch.ops import field_kernels as K
+    from zkfhe_tpu_torch.ops import mxu_field as MX
     from zkfhe_tpu_torch.ops import ntt as N
     with open(FIXTURE) as f:
         ref = json.load(f)
 
-    build_kernels(K)
-    errs = check_kernels(F, K, dev)
+    build_kernels(K, NAT)
+    errs, c_check = check_kernels(F, K, dev)
+    matmul = attempt("matmul", check_matmul, F, MX, dev)
 
     os.chdir(ROOT)
     mock, c_mock, l_mock = drive(
-        K, cli, ["--name", "bfv", "-k", "13", "--input", "bfv/bfv.in",
-                 "mock"], "mock (bfv.in, k=13)")
+        K, MX, cli, ["--name", "bfv", "-k", "13", "--input", "bfv/bfv.in",
+                     "mock"], "mock (bfv.in, k=13)")
     want = ref["mock"]
     for key in ("violations", "public_values", "cells", "trace_digest"):
         if mock.get(key) != want[key]:
@@ -302,41 +451,81 @@ def main():
     tmp = tempfile.mkdtemp(prefix="zkfhe_smoke_")
     try:
         os.makedirs(os.path.join(tmp, "data", "bfv"))
-        shutil.copy(os.path.join(ROOT, "data", "bfv", "bfv_empty.in"),
-                    os.path.join(tmp, "data", "bfv"))
+        for name in ("bfv_empty.in", "bfv.in"):
+            shutil.copy(os.path.join(ROOT, "data", "bfv", name),
+                        os.path.join(tmp, "data", "bfv"))
+        base = ["--name", "bfv", "-k", "13", "--data-path",
+                os.path.join(tmp, "data"), "--config-path",
+                os.path.join(tmp, "configs"), "--params-path",
+                os.path.join(ROOT, "params")]
         kg, c_kg, l_kg = drive(
-            K, cli, ["--name", "bfv", "-k", "13", "--input",
-                     "bfv/bfv_empty.in", "--data-path",
-                     os.path.join(tmp, "data"), "--config-path",
-                     os.path.join(tmp, "configs"), "--params-path",
-                     os.path.join(ROOT, "params"), "keygen"],
+            K, MX, cli, base + ["--input", "bfv/bfv_empty.in", "keygen"],
             "keygen (bfv_empty.in, k=13)")
+        for key in ("vk_digest", "num_fixed", "num_sigma"):
+            if kg.get(key) != ref["keygen"][key]:
+                FAILURES.append(f"keygen {key}: port {kg.get(key)} != JAX "
+                                f"{ref['keygen'][key]}")
+        print(f"[smoke] keygen: {kg}")
+
+        base += ["--input", "bfv/bfv.in"]
+        pv, c_pv, l_pv = attempt(
+            "prove", drive, K, MX, cli, base + ["prove"],
+            "prove (bfv.in, k=13)") or ({}, dict.fromkeys(
+                list(KERNELS) + ["mat_mul_mont"], 0), dict.fromkeys(KERNELS))
+        for stage, dt in pv.get("stages", {}).items():
+            print(f"[smoke]   prove stage {stage}: {dt:.4f}s")
+        print(f"[smoke] proof length: {pv.get('proof_len')} bytes "
+              f"(JAX protocol: {ref['proof_len']})")
+        if "snark" in pv:
+            t0 = time.time()
+            attempt("verify", check_verify, cli, base, pv["snark"], ref)
+            print(f"[smoke] verify phase: {time.time() - t0:.3f}s")
+            if SAVE_PROOF:
+                os.makedirs(os.path.dirname(os.path.abspath(SAVE_PROOF)),
+                            exist_ok=True)
+                shutil.copy(pv["snark"], SAVE_PROOF)
+            if PROFILE:
+                attempt("profile of prove proper", profile_prove_proper, dev,
+                        os.path.join(tmp, "data"),
+                        os.path.join(ROOT, "params"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    for key in ("vk_digest", "num_fixed", "num_sigma"):
-        if kg.get(key) != ref["keygen"][key]:
-            FAILURES.append(f"keygen {key}: port {kg.get(key)} != JAX "
-                            f"{ref['keygen'][key]}")
-    print(f"[smoke] keygen: {kg}")
 
-    launches = {k: c_mock[k] + c_kg[k] for k in KERNELS}
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        FAILURES.append(f"kernels never launched on the main path: "
-                        f"{missing}")
-    largest = {k: max((v for v in (l_mock[k], l_kg[k]) if v is not None),
-                      key=lambda v: v[0].numel()) for k in KERNELS
-               if k not in missing}
+    phases = {"mock": c_mock, "keygen": c_kg, "prove": c_pv}
+    launches = {k: sum(c[k] for c in phases.values()) for k in KERNELS}
+    launches["bfly"] = c_check["bfly"]
+    for k in KERNELS:
+        if k == "bfly":
+            continue
+        for ph, c in phases.items():
+            if c[k] == 0:
+                FAILURES.append(f"kernel {k} never launched in {ph}")
+    if c_pv["mat_mul_mont"] == 0:
+        FAILURES.append("mat_mul_mont never launched in prove")
+    largest = {}
+    for k in KERNELS:
+        seen = [v for v in (l_mock[k], l_kg[k], l_pv[k]) if v is not None]
+        if seen:
+            largest[k] = max(seen, key=lambda v: v[0].numel())
+    if "bfly_dif" in largest:
+        largest["bfly"] = largest["bfly_dif"]
     timing = time_kernels(F, K, N, dev, largest, errs)
     print(f"[smoke] total: {time.time() - t_all:.3f}s")
     if FAILURES:
         for f in FAILURES:
             print(f"[smoke] FAILED: {f}", file=sys.stderr)
         sys.exit(1)
+    print(json.dumps({"matmul": dict(
+        name="mat_mul_mont", route="library plane product + PyTorch "
+        "epilogue", source="zkfhe_tpu_torch/ops/mxu_field.py",
+        replaces=MATMUL_REPLACES, launches=c_pv["mat_mul_mont"],
+        shapes=matmul)}))
     line = {"kernels": [dict(
         name=k, route="cuda", source=SOURCE,
         replaces=KERNELS[k]["replaces"], launches=launches[k],
-        launches_mock=c_mock[k], launches_keygen=c_kg[k],
+        **({"launches_check": c_check[k]} if k == "bfly" else
+           {"launches_mock": c_mock[k], "launches_keygen": c_kg[k],
+            "launches_prove": c_pv[k]}),
         max_abs_err=errs[k], library_ms=None, **timing[k])
         for k in KERNELS]}
     print(json.dumps(line))

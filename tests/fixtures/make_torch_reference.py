@@ -9,7 +9,10 @@ Runs on the CPU in about a quarter of an hour. The values are:
   (``cli.py`` mock verb), its cell count, public-value count, violation
   count, and ``trace_digest`` of the four trace arrays plus the instance;
 * ``keygen``: ``vk_digest`` of the keygen of ``bfv/bfv_empty.in`` at
-  k=13 against ``params/kzg_bn254_13{,.lag}.npz``.
+  k=13 against ``params/kzg_bn254_13{,.lag}.npz``;
+* ``proof_len``: the byte length of a k=13 proof of that circuit, from
+  the JAX package's protocol schedule for the keygen's shape (32 bytes
+  per commitment and per opened evaluation; host-only).
 
 The JAX package's full k=13 keygen does not finish on the CPU in 90
 minutes (its 337 commitment MSMs; it held 27 GB). So the JAX keygen runs
@@ -86,7 +89,22 @@ def compute(k: int = 13) -> dict:
     out["keygen"] = keygen_reference(k, circuit, params)
     print(f"keygen reference: {time.time() - t0:.1f}s {out['keygen']}",
           flush=True)
+    out["proof_len"] = proof_len(out["keygen"].pop("shape"))
     return out
+
+
+def proof_len(shape) -> int:
+    """Proof bytes for a vk shape: every commitment the verifier reads
+    (advice, lookup multiplicity, helpers, g and phi, grand products, the
+    random poly, the quotient chunks, SHPLONK's H and W) and every opened
+    evaluation, 32 bytes each."""
+    from zkfhe_tpu.backend import protocol as PROTO
+    nlk = shape["num_lk_cols"]
+    points = (shape["num_advice"]
+              + (1 + PROTO.num_lookup_groups(shape) + 2 if nlk else 0)
+              + PROTO.num_perm_chunks(shape) + 1
+              + PROTO.NUM_QUOT_CHUNKS + 2)
+    return 32 * (points + len(PROTO.opening_schedule(shape)))
 
 
 def keygen_reference(k, circuit, params) -> dict:
@@ -141,6 +159,7 @@ def keygen_reference(k, circuit, params) -> dict:
         "num_sigma": len(pk.vk.sigma_commits),
         "reproduces": "data/bfv.pk.npz arrays, data/bfv.vk.npz shape, "
                       "delta, G2 points and its first 8 fixed commitments",
+        "shape": pk.vk.shape,
     }
 
 

@@ -24,7 +24,10 @@ torch.set_num_threads(1)
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     mods = ["zkfhe_tpu_torch.cli", "zkfhe_tpu_torch.backend.keygen",
-            "zkfhe_tpu_torch.models.bfv", "zkfhe_tpu_torch.utils.convert"]
+            "zkfhe_tpu_torch.models.bfv", "zkfhe_tpu_torch.utils.convert",
+            "zkfhe_tpu_torch.backend.prover",
+            "zkfhe_tpu_torch.backend.verifier",
+            "zkfhe_tpu_torch.ops.mxu_field", "zkfhe_tpu_torch.native"]
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m == 'jax' or "

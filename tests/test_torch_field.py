@@ -45,7 +45,7 @@ def interp_env():
 
 
 KERNEL_CASES = [(f, k) for f in FIELDS
-                for k in ("mont_mul", "add", "sub", "bfly_dif")]
+                for k in ("mont_mul", "add", "sub", "bfly_dif", "bfly")]
 
 
 @pytest.mark.parametrize("fname,kernel", KERNEL_CASES)
@@ -64,6 +64,12 @@ def test_plain_kernel_matches_pallas_and_ints(interp_env, fname, kernel):
         got = TK.bfly_dif(tf, tA, tB, tC)
         ints = ([(x + y) % p for x, y in zip(a, b)],
                 [(x - y) * z * rinv % p for x, y, z in zip(a, b, c)])
+    elif kernel == "bfly":
+        want_j = JPF.butterfly_pallas(jf, jnp.asarray(A), jnp.asarray(B),
+                                      jnp.asarray(Cc))
+        got = TK.bfly(tf, tA, tB, tC)
+        ints = ([(x + y * z * rinv) % p for x, y, z in zip(a, b, c)],
+                [(x - y * z * rinv) % p for x, y, z in zip(a, b, c)])
     else:
         pallas = {"mont_mul": JPF.mont_mul_pallas, "add": JPF.add_pallas,
                   "sub": JPF.sub_pallas}[kernel]

@@ -37,9 +37,10 @@ def test_kernels_match_plain_on_card(cuda, field):
         got = K.cuda_binary(name, field, x, y)
         want = getattr(K, "plain_" + name)(field, x, y)
         assert torch.equal(got, want), name
-    hi, lo = K.cuda_bfly_dif(field, x, y, z)
-    whi, wlo = K.plain_bfly_dif(field, x, y, z)
-    assert torch.equal(hi, whi) and torch.equal(lo, wlo)
+    for name in ("bfly_dif", "bfly"):
+        hi, lo = K.cuda_butterfly(name, field, x, y, z)
+        whi, wlo = getattr(K, "plain_" + name)(field, x, y, z)
+        assert torch.equal(hi, whi) and torch.equal(lo, wlo), name
 
 
 def test_wrappers_launch_on_card_and_count(cuda):
@@ -50,3 +51,18 @@ def test_wrappers_launch_on_card_and_count(cuda):
     assert torch.equal(out.cpu(), F.mont_mul(F.FR, x.cpu(), x[:, :1].cpu()))
     with pytest.raises(ValueError):
         K.cuda_binary("add", F.FR, x, x.cpu())
+
+
+def test_mat_mul_mont_on_card_matches_plain(cuda):
+    from zkfhe_tpu_torch.ops import mxu_field as MX
+    rng = np.random.default_rng(9)
+    for M, Kd, N in ((1, 13, 300), (3, 40, 5)):
+        a = _rand(F.FR, M * Kd, int(rng.integers(1 << 30)), cuda)
+        b = _rand(F.FR, Kd * N, int(rng.integers(1 << 30)), cuda)
+        A, B = a.reshape(20, M, Kd), b.reshape(20, Kd, N)
+        MX.reset_counts()
+        got = MX.mat_mul_mont(F.FR, A, B)
+        assert MX.LAUNCHES["mat_mul_mont"] == 1
+        assert torch.equal(got, MX.plain_mat_mul_mont(F.FR, A, B))
+        assert torch.equal(got.cpu(), MX.mat_mul_mont(F.FR, A.cpu(),
+                                                      B.cpu()))

@@ -108,7 +108,7 @@ class Committer:
         return C.decode_points((jac[0], jac[1], jac[2]))
 
     def commit_values(self, vals_mont, split_tail: bool = True,
-                      col_bits=None):
+                      col_bits=None, sync: bool = True):
         """(L, K, n) Montgomery evaluation-form columns -> K commitments.
 
         split_tail: rows [0, u) are width-tiered per column; rows [u, n)
@@ -116,10 +116,13 @@ class Committer:
         all K columns in one shared launch and added on the device.
         col_bits: static per-column value bounds; without it widths are
         measured from the values (fine for public columns).
+        sync=False: the MSMs are enqueued and the device-to-host decode is
+        deferred: returns a zero-argument closure that yields the points
+        (the prover's generator yields between the two).
         """
         L_, K, n = vals_mont.shape
         if K == 0:
-            return []
+            return [] if sync else (lambda: [])
         assert n == self.n
         std = F.from_mont(FR, vals_mont)
         if not split_tail:
@@ -129,7 +132,10 @@ class Committer:
                 w = min(fb, K - s)
                 parts.append(self._msm(std[:, s:s + fb], 256, 0,
                                        fb)[:, :, :w])
-            return self._decode(torch.cat(parts, dim=2))[:K]
+            jac = torch.cat(parts, dim=2)
+            if not sync:
+                return lambda: self._decode(jac)[:K]
+            return self._decode(jac)[:K]
         u = self.u
         main = std[:, :, :u]
         if col_bits is not None:
@@ -160,13 +166,17 @@ class Committer:
         jac_main = jac_main[:, :, inv]
         kpad = next((c for c in TAIL_KS if c >= K), -(-K // 64) * 64)
         tail = self._msm(std[:, :, u:], 256, u, kpad)[:, :, :K]
-        return self._decode(_stacked_add(jac_main, tail))
+        jac = _stacked_add(jac_main, tail)
+        if not sync:
+            return lambda: self._decode(jac)
+        return self._decode(jac)
 
-    def commit_coeffs(self, coeffs_mont, dom):
+    def commit_coeffs(self, coeffs_mont, dom, sync: bool = True):
         """(L, K, n) Montgomery coefficient-form columns -> commitments."""
         if coeffs_mont.shape[1] == 0:
-            return []
-        return self.commit_values(N.ntt(dom, coeffs_mont), split_tail=False)
+            return [] if sync else (lambda: [])
+        return self.commit_values(N.ntt(dom, coeffs_mont), split_tail=False,
+                                  sync=sync)
 
 
 def make_committer(srs: "SRS.SRS", n: int, u: int) -> Committer:

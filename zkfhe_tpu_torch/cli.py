@@ -1,12 +1,16 @@
-"""Command line of the PyTorch port: mock / keygen (prove / verify to come).
+"""Command line of the PyTorch port: mock / keygen / prove / verify.
 
     python -m zkfhe_tpu_torch --name bfv -k 13 --input bfv/bfv.in mock
     python -m zkfhe_tpu_torch --name bfv -k 13 --input bfv/bfv_empty.in keygen
+    python -m zkfhe_tpu_torch --name bfv -k 13 --input bfv/bfv.in prove
+    python -m zkfhe_tpu_torch --name bfv -k 13 --input bfv/bfv.in verify
 
 Same flags and artifact files as ``python -m zkfhe_tpu``: configs/{name}.json,
 params/kzg_bn254_{k}[.lag].npz (read), data/{name}.vk.npz and
-data/{name}.pk.npz (written by keygen). ``--device`` picks the torch device
-(default ``cuda``).
+data/{name}.pk.npz (written by keygen, read by prove), data/{name}.snark.npz
+(written by prove: ``proof`` and ``instance``; read by verify).
+``--device`` picks the torch device (default ``cuda``); verify runs on the
+host.
 """
 from __future__ import annotations
 
@@ -64,11 +68,8 @@ def main(argv=None, out: dict | None = None):
     results (cell counts, digests) are stored in it."""
     args = build_parser().parse_args(argv)
     out = {} if out is None else out
-    if args.command in ("prove", "verify"):
-        print(f"[zkfhe] {args.command}: not ported yet (use python -m "
-              f"zkfhe_tpu)", file=sys.stderr)
-        return 2
 
+    import numpy as np
     import torch
     from .backend import keygen as KG
     from .backend import srs as SRS
@@ -76,11 +77,35 @@ def main(argv=None, out: dict | None = None):
     from .ops import field as F
     from .trace import compile as TC
 
-    device = torch.device(args.device)
+    vk_path = os.path.join(args.data_path, f"{args.name}.vk.npz")
+    pk_path = os.path.join(args.data_path, f"{args.name}.pk.npz")
+    snark_path = os.path.join(args.data_path, f"{args.name}.snark.npz")
+    needs = {"prove": (vk_path, pk_path), "verify": (vk_path, snark_path)}
+    missing = [p for p in needs.get(args.command, ()) if not os.path.exists(p)]
+    if missing:
+        print(f"[zkfhe] {args.command}: missing {', '.join(missing)} (run "
+              f"keygen{' and prove' if args.command == 'verify' else ''} "
+              f"first)", file=sys.stderr)
+        return 1
+
     t0 = time.time()
+    if args.command == "verify":
+        from .backend import verifier as VF
+        vk = KG.load_vk(vk_path)
+        data = np.load(snark_path)
+        proof = bytes(data["proof"])
+        inst = [int(v) for v in data["instance"]]
+        t0 = _stage("load vk + proof", t0)
+        ok = VF.verify(vk, proof, inst, verbose=True)
+        _stage("verify", t0)
+        out.update(verified=ok)
+        print(f"[zkfhe] verify: {'OK' if ok else 'FAILED'}")
+        return 0 if ok else 1
+
+    device = torch.device(args.device)
     params = bfv.BfvParams(n=args.n, q=args.q, t=args.t, b=args.b)
     cfg_file = os.path.join(args.config_path, f"{args.name}.json")
-    if args.command == "mock" and os.path.exists(cfg_file):
+    if args.command in ("mock", "prove") and os.path.exists(cfg_file):
         with open(cfg_file) as f:
             bp = json.load(f).get("bfv_params")
         if bp:
@@ -115,8 +140,26 @@ def main(argv=None, out: dict | None = None):
 
     srs = SRS.load_or_generate(args.degree, args.params_path, device)
     t0 = _stage("srs", t0)
-    vk_path = os.path.join(args.data_path, f"{args.name}.vk.npz")
-    pk_path = os.path.join(args.data_path, f"{args.name}.pk.npz")
+
+    if args.command == "prove":
+        from .backend import prover as PV
+        vk = KG.load_vk(vk_path)
+        pk = KG.load_pk(pk_path, vk, circuit, inputs, device=device)
+        t0 = _stage("load pk", t0)
+        proof = PV.prove(pk, srs, circuit, inputs)
+        for name, dt in PV.LAST_STAGES.items():
+            print(f"[zkfhe]   prove {name}: {dt:.3f}s")
+        t0 = _stage("prove", t0)
+        _, instance = TC.make_witgen_p0(circuit)(inputs)
+        os.makedirs(args.data_path, exist_ok=True)
+        np.savez_compressed(
+            snark_path, proof=np.frombuffer(proof, dtype=np.uint8),
+            instance=np.asarray([str(v) for v in F.decode(F.FR, instance)]))
+        _stage("write proof", t0)
+        out.update(proof_len=len(proof), snark=snark_path,
+                   stages=dict(PV.LAST_STAGES))
+        print(f"[zkfhe] prove OK -> {snark_path} ({len(proof)} bytes)")
+        return 0
 
     stages = {}
     pk = KG.keygen(circuit, inputs, args.degree, srs, stages=stages)

@@ -6,6 +6,7 @@
 //   zk_add       <- _add_kernel      (_k_add)
 //   zk_sub       <- _sub_kernel      (_k_sub)
 //   zk_bfly_dif  <- _bfly_dif_kernel (fused Stockham DIF butterfly)
+//   zk_bfly      <- _bfly_kernel     (fused DIT butterfly)
 // and computes what they compute, limb for limb: a 20x20 schoolbook product
 // into 40 uint32 accumulators, 20 interleaved reduction rounds, one carry
 // chain and one conditional subtract of p. Accumulators stay below 2^31.8
@@ -21,7 +22,8 @@
 // 400 reduction). At 3.35 TB/s the bytes take 72 ps per lane; the multiply-
 // adds take 48 ps at half the 67 T/s FP32 rate (IMAD issues at half rate),
 // so mont_mul sits near the balance point and add/sub/bfly_dif are bound by
-// bytes. The design keeps each lane's traffic to one read of every input
+// bytes (bfly moves 400 B and does one mont_mul per lane, like bfly_dif).
+// The design keeps each lane's traffic to one read of every input
 // limb and one write of every output limb.
 //
 // Interface: plain C, loaded with ctypes. Each entry launches on the given
@@ -209,6 +211,25 @@ __global__ void __launch_bounds__(256)
   store(lo, n, i, x);
 }
 
+// (u, v, tw) -> (u + v * tw, u - v * tw), all mod p.
+template <int F>
+__global__ void __launch_bounds__(256)
+    k_bfly(const uint32_t* __restrict__ u, const uint32_t* __restrict__ v,
+           const uint32_t* __restrict__ tw, uint32_t* __restrict__ hi,
+           uint32_t* __restrict__ lo, int64_t n) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t x[NL], y[NL], t[NL], r[NL];
+  load(v, n, i, x);
+  load(tw, n, i, y);
+  f_mont_mul<F>(x, y, t);
+  load(u, n, i, x);
+  f_add<F>(x, t, r);
+  store(hi, n, i, r);
+  f_sub<F>(x, t, r);
+  store(lo, n, i, r);
+}
+
 static inline unsigned int blocks_for(int64_t n) {
   return (unsigned int)((n + 255) / 256);
 }
@@ -252,21 +273,29 @@ int zk_sub(int field, const void* a, const void* b, void* out, int64_t n,
   DISPATCH2(k_sub)
 }
 
+#define DISPATCH_BFLY(KERNEL)                                                \
+  if (n <= 0) return (int)cudaSuccess;                                       \
+  cudaStream_t s = (cudaStream_t)stream;                                     \
+  if (field == 0)                                                            \
+    KERNEL<0><<<blocks_for(n), 256, 0, s>>>(                                 \
+        (const uint32_t*)u, (const uint32_t*)v, (const uint32_t*)tw,         \
+        (uint32_t*)hi, (uint32_t*)lo, n);                                    \
+  else if (field == 1)                                                       \
+    KERNEL<1><<<blocks_for(n), 256, 0, s>>>(                                 \
+        (const uint32_t*)u, (const uint32_t*)v, (const uint32_t*)tw,         \
+        (uint32_t*)hi, (uint32_t*)lo, n);                                    \
+  else                                                                       \
+    return (int)cudaErrorInvalidValue;                                       \
+  return (int)cudaGetLastError();
+
 int zk_bfly_dif(int field, const void* u, const void* v, const void* tw,
                 void* hi, void* lo, int64_t n, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (field == 0)
-    k_bfly_dif<0><<<blocks_for(n), 256, 0, s>>>(
-        (const uint32_t*)u, (const uint32_t*)v, (const uint32_t*)tw,
-        (uint32_t*)hi, (uint32_t*)lo, n);
-  else if (field == 1)
-    k_bfly_dif<1><<<blocks_for(n), 256, 0, s>>>(
-        (const uint32_t*)u, (const uint32_t*)v, (const uint32_t*)tw,
-        (uint32_t*)hi, (uint32_t*)lo, n);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  DISPATCH_BFLY(k_bfly_dif)
+}
+
+int zk_bfly(int field, const void* u, const void* v, const void* tw,
+            void* hi, void* lo, int64_t n, void* stream) {
+  DISPATCH_BFLY(k_bfly)
 }
 
 }  // extern "C"

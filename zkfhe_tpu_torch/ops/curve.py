@@ -341,6 +341,21 @@ def point_add_mixed(P, Q_aff):
     return X3, Y3, Z3
 
 
+def scalar_mul(P, scalar_bits):
+    """Double-and-add ladder over a batch of points.
+
+    scalar_bits: (nbits, *batch) {0, 1} tensor, LSB first: each lane gets
+    its own scalar. Runs nbits sequential steps."""
+    acc = infinity_like(P[0].shape[1:], P[0].device)
+    base = P
+    for i in range(scalar_bits.shape[0]):
+        bit = scalar_bits[i].to(torch.bool)
+        cand = point_add(acc, base)
+        acc = tuple(F.select(bit, c, a) for c, a in zip(cand, acc))
+        base = point_double(base)
+    return acc
+
+
 def to_affine_xy(P):
     """Jacobian batch -> affine (X, Y) Montgomery arrays. Infinity lanes
     map to (0, 0)."""

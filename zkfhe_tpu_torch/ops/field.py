@@ -217,6 +217,19 @@ def mont_reduce(field: Field, t):
     return _K.plain_mont_reduce(field, t)
 
 
+def rand_mont(field: Field, generator: torch.Generator, shape: tuple,
+              device="cpu"):
+    """Uniform field elements drawn on `device` from `generator`: 2L-1
+    random 13-bit limbs (a uniform 507-bit integer U < p*R, the top limb
+    zeroed) -> mont_reduce gives U*R^-1 mod p, uniform up to a bias below
+    2^-250. The limbs are taken as Montgomery form (a uniform element is
+    uniform in either form). The generator must live on `device`."""
+    bits = torch.randint(0, 1 << LIMB_BITS, (2 * NLIMBS,) + tuple(shape),
+                         generator=generator, dtype=DTYPE, device=device)
+    bits[2 * NLIMBS - 1] = 0  # keeps U < 2^507 < p*R (see mont_reduce)
+    return mont_reduce(field, bits)
+
+
 def _const(field: Field, value: int, like):
     """Broadcast a python-int constant to the batch shape of `like`."""
     return const(field, value, like.shape[1:], like.device)

@@ -7,6 +7,7 @@ Each wrapper here stands in for one Pallas kernel of
     add       <- _add_kernel        (add_pallas)
     sub       <- _sub_kernel        (sub_pallas)
     bfly_dif  <- _bfly_dif_kernel   (butterfly_dif_pallas)
+    bfly      <- _bfly_kernel       (butterfly_pallas)
 
 On a CUDA tensor a wrapper launches the hand-written kernel of
 ``csrc/field_kernels.cu`` or raises; it never falls back. On any other
@@ -40,7 +41,7 @@ MASK13 = F.LIMB_MASK
 MASK26 = (1 << 26) - 1
 MASK52 = (1 << 52) - 1
 
-KERNELS = ("mont_mul", "add", "sub", "bfly_dif")
+KERNELS = ("mont_mul", "add", "sub", "bfly_dif", "bfly")
 LAUNCHES = {k: 0 for k in KERNELS}
 # (shape, field) of each kernel's largest launch since the last reset
 LARGEST = {k: None for k in KERNELS}
@@ -189,6 +190,11 @@ def plain_bfly_dif(field, u, v, tw):
                                                   plain_sub(field, u, v), tw)
 
 
+def plain_bfly(field, u, v, tw):
+    vw = plain_mont_mul(field, v, tw)
+    return plain_add(field, u, vw), plain_sub(field, u, vw)
+
+
 # ---------------------------------------------------------------------------
 # The CUDA library: built with nvcc at first use, loaded with ctypes
 # ---------------------------------------------------------------------------
@@ -254,8 +260,10 @@ def load():
             fn = getattr(lib, name)
             fn.argtypes = [i32, vp, vp, vp, i64, vp]
             fn.restype = i32
-        lib.zk_bfly_dif.argtypes = [i32, vp, vp, vp, vp, vp, i64, vp]
-        lib.zk_bfly_dif.restype = i32
+        for name in ("zk_bfly_dif", "zk_bfly"):
+            fn = getattr(lib, name)
+            fn.argtypes = [i32, vp, vp, vp, vp, vp, i64, vp]
+            fn.restype = i32
         lib.zk_field_params.argtypes = [i32, ctypes.POINTER(ctypes.c_uint32)]
         lib.zk_field_params.restype = i32
         for fld, idx in ((F.FR, 0), (F.FQ, 1)):
@@ -325,14 +333,16 @@ def cuda_binary(name, field, a, b):
     return out
 
 
-def cuda_bfly_dif(field, u, v, tw):
-    _check("bfly_dif", u, v, tw)
+def cuda_butterfly(name, field, u, v, tw):
+    """Launch bfly_dif or bfly; both outputs go to fresh caller buffers."""
+    _check(name, u, v, tw)
     lib = load()
     hi, lo = torch.empty_like(u), torch.empty_like(u)
     n = _lanes(u)
-    _launch("bfly_dif", lib.zk_bfly_dif(
-        _field_index(field), u.data_ptr(), v.data_ptr(), tw.data_ptr(),
-        hi.data_ptr(), lo.data_ptr(), n, _stream()), field, u)
+    fn = getattr(lib, "zk_" + name)
+    _launch(name, fn(_field_index(field), u.data_ptr(), v.data_ptr(),
+                     tw.data_ptr(), hi.data_ptr(), lo.data_ptr(), n,
+                     _stream()), field, u)
     return hi, lo
 
 
@@ -363,10 +373,20 @@ def sub(field, a, b):
     return _binary("sub", field, a, b)
 
 
+def _butterfly(name, field, u, v, tw):
+    u, v, tw = torch.broadcast_tensors(u, v, tw)
+    if u.is_cuda or v.is_cuda or tw.is_cuda:
+        return cuda_butterfly(name, field, u.contiguous(), v.contiguous(),
+                              tw.contiguous())
+    plain = plain_bfly_dif if name == "bfly_dif" else plain_bfly
+    return plain(field, u, v, tw)
+
+
 def bfly_dif(field, u, v, tw):
     """(u + v, (u - v) * tw) mod p; tw broadcasts to u's shape."""
-    u, v, tw = torch.broadcast_tensors(u, v, tw)
-    if u.is_cuda:
-        return cuda_bfly_dif(field, u.contiguous(), v.contiguous(),
-                             tw.contiguous())
-    return plain_bfly_dif(field, u, v, tw)
+    return _butterfly("bfly_dif", field, u, v, tw)
+
+
+def bfly(field, u, v, tw):
+    """(u + v * tw, u - v * tw) mod p; tw broadcasts to u's shape."""
+    return _butterfly("bfly", field, u, v, tw)

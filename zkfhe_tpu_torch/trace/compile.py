@@ -124,6 +124,22 @@ def make_witgen(circuit_fn: Callable):
     return witgen
 
 
+def make_witgen_p0(circuit_fn: Callable):
+    """Phase-0 witness generator: inputs -> (values[CTX_P0], instance) at
+    the zero challenge. The JAX package's form lets XLA drop the rest of
+    the circuit from the executable; in eager PyTorch the whole circuit
+    runs (one more run than the prover's full witness) and the other
+    contexts are dropped."""
+
+    def witgen_p0(inputs):
+        dev = next(iter(inputs.values())).device
+        _, values, instance = run_circuit(circuit_fn, inputs,
+                                          F.zero((), dev))
+        return values[CTX_P0], instance
+
+    return witgen_p0
+
+
 # ---------------------------------------------------------------------------
 # Mock prover
 # ---------------------------------------------------------------------------
