@@ -15,7 +15,8 @@ Phases, each printed with its time; any failure exits non-zero:
 4. matmul: ``mxu_field.mat_mul_mont`` (7-bit limb planes, float64 product)
    against its plain mont_mul + tree-sum chain at the prover's evaluation
    shape (20, 128, 8192) x (20, 8192, 5) and its SHPLONK fold shape
-   (20, 1, 64) x (20, 64, 8192): exact equality; then both timed;
+   (20, 1, 64) x (20, 64, 8192), and at the batch's shapes, the same with
+   a proof axis of 8 after the limb axis: exact equality; then both timed;
 5. mock: ``cli.main`` mock of data/bfv/bfv.in at k=13: 0 violations, 5121
    public values, cell count and trace digest equal to the JAX package's
    (tests/fixtures/torch_reference_k13.json);
@@ -26,21 +27,34 @@ Phases, each printed with its time; any failure exits non-zero:
    length must equal the fixture's ``proof_len``;
 8. verify: ``cli.main`` verify of that proof returns 0, and non-zero with
    one byte of the proof flipped and with one public value changed;
-9. timing: each kernel's wrapper again, at the shape and field of its
-   largest launch in phases 5-7 (bfly, which no module calls, at
+9. serial: the keygen's pk loaded once; bfv.in and seven inputs of
+   ``bfv.generate_input(BfvParams(n=1024), seed=100+i)``, i = 1..7 (as
+   scripts/bench_batch.py); one warm-up ``prover.prove``, then one timed
+   ``prove(..., rng_seed=b"s0")``;
+10. batch: ``backend/batch.prove_batch`` of the eight inputs with seeds
+   s0..s7: proof 0 equals the serial bytes, the eight proofs are
+   distinct, and the port's verify accepts each;
+11. stream: ``parallel/pipeline.prove_stream`` of the first four inputs,
+   depth 2, same seeds: equal to the batch's first four proofs. Phases
+   9-11 print the time per proof, the table-MSM calls per proof, the
+   peak device memory and the batch's stage times;
+12. timing: each kernel's wrapper again, at the shape and field of its
+   largest launch in phases 5-11 (bfly, which no module calls, at
    bfly_dif's), on fresh random inputs, held to its plain version there
    too (exact equality), then timed with its plain version; plus one NTT
    of the same lanes through ``ntt.ntt``, whose time per stage shows what
    the stage's copies around ``bfly_dif`` cost;
-10. the ``matmul`` and ``kernels`` JSON lines: per kernel, its launches in
-   phases 5-7 (each must be > 0 in each phase; bfly's launches are those
-   of its check in phase 3), its largest mismatch over phases 3 and 9, its
-   time, its plain version's time and its bound.
+13. the ``matmul`` and ``kernels`` JSON lines: per kernel, its launches in
+   phases 5-7 and in the batch and the stream (each must be > 0 in each;
+   bfly's launches are those of its check in phase 3), its largest
+   mismatch over phases 3 and 12, its time, its plain version's time and
+   its bound.
 
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
-``python3 chip_smoke.py --profile`` also prints, for mock, keygen and
-prove, the device busy share and the kernels that took the most device
-time; ``--save-proof PATH`` keeps a copy of the verified k=13 snark.
+``python3 chip_smoke.py --profile`` also prints, for mock, keygen, prove
+and a second run of the batch, the device busy share and the kernels that
+took the most device time; ``--save-proof PATH`` keeps a copy of the
+verified k=13 snark.
 """
 from __future__ import annotations
 
@@ -84,10 +98,19 @@ KERNELS = {
                  replaces="zkfhe_tpu/ops/pallas_field.py:177"),
 }
 BUTTERFLIES = ("bfly_dif", "bfly")
-# the prover's mat_mul_mont shapes: (M, K, N) of its evaluation matmul
-# (EV_CHUNK polys x n coefficients x 5 rotations) and of a SHPLONK fold
-# (one row of CB weights x CB polys x n coefficients)
-MATMUL_SHAPES = {"evaluations": (128, 8192, 5), "shplonk fold": (1, 64, 8192)}
+# proofs in the batch (scripts/bench_batch.py's B) and in the depth-2 stream
+BATCH_B = 8
+STREAM_B = 4
+# the prover's mat_mul_mont shapes: (batch, M, K, N) of its evaluation
+# matmul (EV_CHUNK polys x n coefficients x 5 rotations) and of a SHPLONK
+# fold (one row of CB weights x CB polys x n coefficients); the batch's
+# carry a proof axis, one plane product for all its proofs
+MATMUL_SHAPES = {
+    "evaluations": ((), 128, 8192, 5),
+    "shplonk fold": ((), 1, 64, 8192),
+    "batch evaluations": ((BATCH_B,), 128, 8192, 5),
+    "batch shplonk fold": ((BATCH_B,), 1, 64, 8192),
+}
 MATMUL_REPLACES = "zkfhe_tpu/ops/mxu_field.py:125"
 SOURCE = "zkfhe_tpu_torch/csrc/field_kernels.cu"
 
@@ -234,33 +257,36 @@ def check_matmul(F, MX, dev):
     the bare plane product (the library call inside it)."""
     rng = np.random.default_rng(2)
     out = {}
-    for label, (M, Kd, N) in MATMUL_SHAPES.items():
-        A = random_canonical(rng, (20, M, Kd), dev)
-        B = random_canonical(rng, (20, Kd, N), dev)
+    for label, (bt, M, Kd, N) in MATMUL_SHAPES.items():
+        shape = bt + (M, Kd, N)
+        nb = int(np.prod(bt))
+        A = random_canonical(rng, (20,) + bt + (M, Kd), dev)
+        B = random_canonical(rng, (20,) + bt + (Kd, N), dev)
         got = MX.mat_mul_mont(F.FR, A, B)
         want = MX.plain_mat_mul_mont(F.FR, A, B)
         err = max_err((got,), (want,))
         if err:
             FAILURES.append(f"mat_mul_mont disagrees with its plain chain "
-                            f"at {label} {(M, Kd, N)}")
+                            f"at {label} {shape}")
         ms = time_ms(lambda: MX.mat_mul_mont(F.FR, A, B), reps=10)
         plain_ms = time_ms(lambda: MX.plain_mat_mul_mont(F.FR, A, B),
                            reps=2)
         # the bare library product (float64 torch.matmul of the planes)
-        lhs = MX.to_planes7(A).permute(1, 0, 2).reshape(
-            M * MX.NPLANES, Kd).to(torch.float64)
-        rhs = MX.to_planes7(B).permute(1, 0, 2).reshape(
-            Kd, MX.NPLANES * N).to(torch.float64)
+        lhs = MX.to_planes7(A).movedim(0, -2).reshape(
+            bt + (M * MX.NPLANES, Kd)).to(torch.float64)
+        rhs = MX.to_planes7(B).movedim(0, -2).reshape(
+            bt + (Kd, MX.NPLANES * N)).to(torch.float64)
         product_ms = time_ms(lambda: torch.matmul(lhs, rhs), reps=10)
-        t_bytes = (M * Kd + Kd * N + M * N) * 80 / HBM_BPS * 1e3
-        t_ops = (2 * (M * MX.NPLANES) * Kd * (MX.NPLANES * N)
+        del lhs, rhs
+        t_bytes = nb * (M * Kd + Kd * N + M * N) * 80 / HBM_BPS * 1e3
+        t_ops = (nb * 2 * (M * MX.NPLANES) * Kd * (MX.NPLANES * N)
                  / INT8_TC_OPS * 1e3)
-        out[label] = dict(shape=[M, Kd, N], max_abs_err=err, ms=ms,
+        out[label] = dict(shape=list(shape), max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, product_ms=product_ms,
                           bound_ms=max(t_bytes, t_ops),
                           bound_by="bytes" if t_bytes >= t_ops
                           else "operations")
-        print(f"[smoke]   mat_mul_mont {label} {(M, Kd, N)}: max |planes - "
+        print(f"[smoke]   mat_mul_mont {label} {shape}: max |planes - "
               f"plain| = {err}; {ms:.4f} ms (float64 plane product "
               f"{product_ms:.4f} ms), plain {plain_ms:.3f} ms, bound "
               f"{out[label]['bound_ms']:.4f} ms ({out[label]['bound_by']})")
@@ -357,6 +383,109 @@ def profile_prove_proper(dev, data_dir, params_dir):
     profile_report(prof, wall, "prove proper (second prove, same pk)")
 
 
+def run_path(K, MX, MSM, name, fn):
+    """One path with every count and the peak-memory mark set to 0 just
+    before it and read just after; returns (its result, measurements),
+    the (shape, field) of each kernel's largest launch among them."""
+    torch.cuda.synchronize()
+    K.reset_counts()
+    MX.reset_counts()
+    MSM.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    res = dict(wall_s=time.time() - t0, msm=dict(MSM.CALLS),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    res["counts"] = dict(K.LAUNCHES)
+    res["counts"].update(MX.LAUNCHES)
+    res["largest"] = dict(K.LARGEST)
+    print(f"[smoke] {name}: {res['wall_s']:.3f}s, peak device memory "
+          f"{res['peak_gb']:.3f} GB, table-MSM calls {res['msm']}, "
+          f"launches={res['counts']}", flush=True)
+    return out, res
+
+
+def check_batch_and_stream(K, MX, dev, data_dir, params_dir):
+    """Phases 9-11: serial, batch and stream proofs of eight k=13 inputs
+    on one loaded pk; returns the measurements of the three paths."""
+    from zkfhe_tpu_torch.backend import batch as BT
+    from zkfhe_tpu_torch.backend import keygen as KG
+    from zkfhe_tpu_torch.backend import prover as PV
+    from zkfhe_tpu_torch.backend import srs as SRS
+    from zkfhe_tpu_torch.backend import verifier as VF
+    from zkfhe_tpu_torch.models import bfv
+    from zkfhe_tpu_torch.ops import field as F
+    from zkfhe_tpu_torch.ops import msm as MSM
+    from zkfhe_tpu_torch.parallel import pipeline as PP
+    from zkfhe_tpu_torch.trace import compile as TC
+    t0 = time.time()
+    params = bfv.BfvParams()
+    cins = [bfv.CircuitInput.from_json(
+        os.path.join(data_dir, "bfv", "bfv.in"))]
+    cins += [bfv.generate_input(bfv.BfvParams(n=1024), seed=100 + i)
+             for i in range(1, BATCH_B)]
+    inputs = [c.to_arrays(params, dev) for c in cins]
+    circuit = bfv.make_bfv_circuit(params)
+    srs = SRS.load_or_generate(13, params_dir, dev)
+    vk = KG.load_vk(os.path.join(data_dir, "bfv.vk.npz"))
+    pk = KG.load_pk(os.path.join(data_dir, "bfv.pk.npz"), vk, circuit,
+                    inputs[0], device=dev)
+    instances = [F.array_to_ints(TC.make_witgen_p0(circuit)(inp)[1])
+                 for inp in inputs]
+    seeds = [b"s%d" % i for i in range(BATCH_B)]
+    # warm-up: the SRS table and the pk's static cosets, built once
+    PV.prove(pk, srs, circuit, inputs[0], rng_seed=b"warm")
+    print(f"[smoke] batch set-up (inputs, pk, instances, warm-up prove): "
+          f"{time.time() - t0:.3f}s")
+
+    serial, r_ser = run_path(K, MX, MSM, "serial prove (s0)", lambda: PV.prove(
+        pk, srs, circuit, inputs[0], rng_seed=seeds[0]))
+    r_ser["stages"] = dict(PV.LAST_STAGES)
+    proofs, r_b = run_path(
+        K, MX, MSM, f"prove_batch (B={BATCH_B}, s0..s{BATCH_B - 1})",
+        lambda: BT.prove_batch(pk, srs, circuit, inputs, rng_seeds=seeds))
+    r_b["stages"] = dict(PV.LAST_STAGES)
+    if proofs[0] != serial:
+        FAILURES.append("prove_batch proof 0 differs from the serial proof")
+    if len(set(proofs)) != BATCH_B:
+        FAILURES.append("prove_batch returned equal proofs")
+    t0 = time.time()
+    ok = [VF.verify(vk, pf, inst) for pf, inst in zip(proofs, instances)]
+    print(f"[smoke] port verify of the {BATCH_B} batch proofs: {ok} "
+          f"({time.time() - t0:.3f}s)")
+    if not all(ok):
+        FAILURES.append(f"verify rejected batch proofs {ok}")
+    streamed, r_s = run_path(
+        K, MX, MSM, f"prove_stream (depth 2, {STREAM_B} proofs)",
+        lambda: PP.prove_stream(pk, srs, circuit, inputs[:STREAM_B],
+                                rng_seeds=seeds[:STREAM_B], depth=2))
+    if streamed != proofs[:STREAM_B]:
+        FAILURES.append("prove_stream proofs differ from the batch's")
+    per = {"serial": (r_ser, 1), "batch": (r_b, BATCH_B),
+           "stream": (r_s, STREAM_B)}
+    for name, (r, nb) in per.items():
+        r["per_proof_s"] = r["wall_s"] / nb
+        r["msm_calls_per_proof"] = r["msm"]["msm_tab"] / nb
+        r["msm_cols_per_proof"] = r["msm"]["msm_cols"] / nb
+        print(f"[smoke]   {name}: {r['per_proof_s']:.4f} s/proof, "
+              f"{r['msm_calls_per_proof']:.2f} table-MSM calls/proof "
+              f"({r['msm_cols_per_proof']:.1f} columns/proof), "
+              f"{r['counts']['mont_mul'] / nb:.1f} mont_mul launches/proof")
+    print(f"[smoke]   batch stages: {r_b['stages']}")
+    print(f"[smoke]   serial stages: {r_ser['stages']}")
+    if PROFILE:
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.time()
+            BT.prove_batch(pk, srs, circuit, inputs, rng_seeds=seeds)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        profile_report(prof, wall, f"prove_batch (B={BATCH_B}), second run")
+    return per
+
+
 def drive(K, MX, cli, argv, name):
     """One CLI verb with the launch counts set to 0 just before it and read
     just after; returns (result dict, counts, the (shape, field) of each
@@ -449,6 +578,7 @@ def main():
     print(f"[smoke] mock: {mock}")
 
     tmp = tempfile.mkdtemp(prefix="zkfhe_smoke_")
+    paths = None
     try:
         os.makedirs(os.path.join(tmp, "data", "bfv"))
         for name in ("bfv_empty.in", "bfv.in"):
@@ -488,6 +618,12 @@ def main():
                 attempt("profile of prove proper", profile_prove_proper, dev,
                         os.path.join(tmp, "data"),
                         os.path.join(ROOT, "params"))
+        t0 = time.time()
+        paths = attempt("batch and stream", check_batch_and_stream, K, MX,
+                        dev, os.path.join(tmp, "data"),
+                        os.path.join(ROOT, "params"))
+        print(f"[smoke] serial, batch and stream phases: "
+              f"{time.time() - t0:.3f}s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -502,9 +638,20 @@ def main():
                 FAILURES.append(f"kernel {k} never launched in {ph}")
     if c_pv["mat_mul_mont"] == 0:
         FAILURES.append("mat_mul_mont never launched in prove")
+    zero = dict.fromkeys(list(KERNELS) + ["mat_mul_mont"], 0)
+    c_b = paths["batch"][0]["counts"] if paths else zero
+    c_s = paths["stream"][0]["counts"] if paths else zero
+    for ph, c in (("prove_batch", c_b), ("prove_stream", c_s)):
+        for k in [k for k in KERNELS if k != "bfly"] + ["mat_mul_mont"]:
+            if c[k] == 0:
+                FAILURES.append(f"kernel {k} never launched in {ph}")
+    # each kernel's largest launch over every driven path: the CLI verbs
+    # and the serial, batch and stream proofs
+    l_paths = [r["largest"] for r, _ in paths.values()] if paths else []
     largest = {}
     for k in KERNELS:
-        seen = [v for v in (l_mock[k], l_kg[k], l_pv[k]) if v is not None]
+        seen = [v for v in [l[k] for l in [l_mock, l_kg, l_pv] + l_paths]
+                if v is not None]
         if seen:
             largest[k] = max(seen, key=lambda v: v[0].numel())
     if "bfly_dif" in largest:
@@ -519,13 +666,21 @@ def main():
         name="mat_mul_mont", route="library plane product + PyTorch "
         "epilogue", source="zkfhe_tpu_torch/ops/mxu_field.py",
         replaces=MATMUL_REPLACES, launches=c_pv["mat_mul_mont"],
-        shapes=matmul)}))
+        launches_batch=c_b["mat_mul_mont"],
+        launches_stream=c_s["mat_mul_mont"], shapes=matmul)}))
+    print(json.dumps({"proof_paths": {
+        name: dict(proofs=nb, **{key: r[key] for key in (
+            "wall_s", "per_proof_s", "peak_gb", "msm_calls_per_proof",
+            "msm_cols_per_proof", "counts")},
+            **({"stages": r["stages"]} if "stages" in r else {}))
+        for name, (r, nb) in paths.items()}}))
     line = {"kernels": [dict(
         name=k, route="cuda", source=SOURCE,
         replaces=KERNELS[k]["replaces"], launches=launches[k],
         **({"launches_check": c_check[k]} if k == "bfly" else
            {"launches_mock": c_mock[k], "launches_keygen": c_kg[k],
             "launches_prove": c_pv[k]}),
+        launches_batch=c_b[k], launches_stream=c_s[k],
         max_abs_err=errs[k], library_ms=None, **timing[k])
         for k in KERNELS]}
     print(json.dumps(line))

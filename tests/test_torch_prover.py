@@ -181,7 +181,7 @@ def test_witgen_p0_matches_jax():
 
 
 def test_stage_timer_marks_in_order():
-    timer = TPROF.StageTimer("t", stream=None, device="cpu")
+    timer = TPROF.StageTimer("cpu")
     for name in ("a", "b", "c"):
         timer.mark(name)
     assert list(timer.summary()) == ["a", "b", "c"]

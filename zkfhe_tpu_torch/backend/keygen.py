@@ -107,6 +107,23 @@ class Committer:
     def _decode(jac) -> list:
         return C.decode_points((jac[0], jac[1], jac[2]))
 
+    def _deferred(self, jac, K=None):
+        """The sync=False closure. On the card the points' device-to-host
+        copy is enqueued now, behind the MSMs that make them, and the
+        closure waits for that copy alone, not for work enqueued after it
+        (another proof's, in parallel/pipeline.py's stream)."""
+        if not jac.is_cuda:
+            return lambda: self._decode(jac)[:K]
+        host = torch.empty(jac.shape, dtype=jac.dtype, pin_memory=True)
+        host.copy_(jac, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+
+        def fin():
+            done.synchronize()
+            return self._decode(host)[:K]
+        return fin
+
     def commit_values(self, vals_mont, split_tail: bool = True,
                       col_bits=None, sync: bool = True):
         """(L, K, n) Montgomery evaluation-form columns -> K commitments.
@@ -134,7 +151,7 @@ class Committer:
                                        fb)[:, :, :w])
             jac = torch.cat(parts, dim=2)
             if not sync:
-                return lambda: self._decode(jac)[:K]
+                return self._deferred(jac, K)
             return self._decode(jac)[:K]
         u = self.u
         main = std[:, :, :u]
@@ -168,7 +185,7 @@ class Committer:
         tail = self._msm(std[:, :, u:], 256, u, kpad)[:, :, :K]
         jac = _stacked_add(jac_main, tail)
         if not sync:
-            return lambda: self._decode(jac)
+            return self._deferred(jac)
         return self._decode(jac)
 
     def commit_coeffs(self, coeffs_mont, dom, sync: bool = True):

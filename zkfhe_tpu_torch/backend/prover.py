@@ -132,22 +132,55 @@ class PolyStore:
         return _join_runs(runs)
 
 
+def _run_piece(a, cols, axis):
+    """One run of columns along `axis`: the direct tensors stacked (a is
+    None), the whole backing tensor, or a gather from it."""
+    if a is None:
+        return torch.stack(cols, dim=axis)
+    if cols == list(range(a.shape[axis])):
+        return a
+    idx = torch.as_tensor(cols, dtype=torch.int64, device=a.device)
+    return a.index_select(axis, idx)
+
+
 def _join_runs(runs):
-    pieces = []
-    for a, cols in runs:
-        if a is None:
-            pieces.append(torch.stack(cols, dim=1))
-        elif cols == list(range(a.shape[1])):
-            pieces.append(a)
-        else:
-            idx = torch.as_tensor(cols, dtype=torch.int64, device=a.device)
-            pieces.append(a.index_select(1, idx))
+    pieces = [_run_piece(a, cols, 1) for a, cols in runs]
     return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=1)
 
 
 # ---------------------------------------------------------------------------
 # Stage functions
+#
+# Each takes the serial shapes given below, or the same with a proof axis
+# right after the limb axis: (L, B, ...) for every per-proof operand and
+# (L, B) for every per-proof scalar (challenges, weights, points), as
+# backend/batch.py calls them. Operands that the JAX batch passes with
+# in_axes=None (cpow, xcoset, dpow(s), the tables, sigma values and the
+# selector coefficients of the singleton terms), and the fixed-column
+# cosets of the grouped terms (sel_ev, qg_ev, sig_ev, qact_ev, qfirst_ev),
+# may stay proof-independent at their serial shapes: _lift broadcasts them
+# over the proof axis.
 # ---------------------------------------------------------------------------
+
+def _bc(s, like):
+    """A scalar per lane of the leading dims, s (L, *b), broadcast over
+    like (L, *b, ...)."""
+    return s.reshape(s.shape + (1,) * (like.dim() - s.dim())).expand(
+        like.shape)
+
+
+def _lift(x, like):
+    """A proof-independent x (L, *rest) broadcast over like (L, *b, *rest):
+    the missing axes go right after the limb axis."""
+    return x.reshape(x.shape[:1] + (1,) * (like.dim() - x.dim())
+                     + x.shape[1:]).expand(like.shape)
+
+
+def _lift_rows(x, like):
+    """One row x (L, [B,] E) broadcast over every row of like
+    (L, [B,] G, E)."""
+    return _lift(x, like[..., 0, :]).unsqueeze(-2).expand(like.shape)
+
 
 def _coset(dom_ext, coeffs, cpow):
     """(L, *batch, n) coeffs -> (L, *batch, ext_n) coset evaluations."""
@@ -155,8 +188,7 @@ def _coset(dom_ext, coeffs, cpow):
     pad = _zeros(coeffs.shape[:-1] + (ext_n - coeffs.shape[-1],),
                  coeffs.device)
     cp = torch.cat([coeffs, pad], dim=-1)
-    cb = cpow.reshape((cpow.shape[0],) + (1,) * (coeffs.dim() - 2) + (ext_n,))
-    return N.ntt(dom_ext, F.mont_mul(FR, cp, cb.expand(cp.shape)))
+    return N.ntt(dom_ext, F.mont_mul(FR, cp, _lift(cpow, cp)))
 
 
 def _roll(ev, rot):
@@ -164,13 +196,13 @@ def _roll(ev, rot):
 
 
 def _wmul(w, t):
-    return F.mont_mul(FR, t, w[:, None].expand(t.shape))
+    return F.mont_mul(FR, t, _bc(w, t))
 
 
 def _wsum(ws, terms):
-    """(L, G) weights x (L, G, E) terms -> weighted sum (L, E)."""
-    t = F.mont_mul(FR, terms, ws[:, :, None].expand(terms.shape))
-    return F.tree_sum_mod(FR, t, axis=1)
+    """(L, *b, G) weights x (L, *b, G, E) terms -> weighted sum (L, *b, E)."""
+    t = F.mont_mul(FR, terms, _bc(ws, terms))
+    return F.tree_sum_mod(FR, t, axis=-2)
 
 
 def _one_like(shape, device):
@@ -184,7 +216,7 @@ def _one_like(shape, device):
 def _gate_terms_partial(ws, a_ev, sel_ev):
     t = F.add(FR, a_ev, F.mont_mul(FR, _roll(a_ev, 1), _roll(a_ev, 2)))
     t = F.sub(FR, t, _roll(a_ev, 3))
-    return _wsum(ws, F.mont_mul(FR, sel_ev, t))
+    return _wsum(ws, F.mont_mul(FR, _lift(sel_ev, t), t))
 
 
 def _j_gate_terms_batch(acc, ws, a_ev, sel_ev):
@@ -192,8 +224,8 @@ def _j_gate_terms_batch(acc, ws, a_ev, sel_ev):
 
 
 def _chal_terms_partial(ws, a_ev, qg_ev, gamma_m):
-    gb = gamma_m[:, None, None].expand(a_ev.shape)
-    return _wsum(ws, F.mont_mul(FR, qg_ev, F.sub(FR, a_ev, gb)))
+    return _wsum(ws, F.mont_mul(FR, _lift(qg_ev, a_ev),
+                                F.sub(FR, a_ev, _bc(gamma_m, a_ev))))
 
 
 def _j_chal_terms_batch(acc, ws, a_ev, qg_ev, gamma_m):
@@ -203,11 +235,11 @@ def _j_chal_terms_batch(acc, ws, a_ev, qg_ev, gamma_m):
 def _lookup_h_terms_partial(ws, h_ev, l_ev, qact_ev, beta_m):
     """All FULL logUp helper groups at once. h_ev: (L, NG, E) helper
     cosets; l_ev: (L, NG, Gc, E) lookup-column cosets per group."""
-    Gc = l_ev.shape[2]
+    Gc = l_ev.shape[-2]
     facs = []
     for i in range(Gc):
-        li = l_ev[:, :, i]
-        facs.append(F.add(FR, li, beta_m[:, None, None].expand(li.shape)))
+        li = l_ev[..., i, :]
+        facs.append(F.add(FR, li, _bc(beta_m, li)))
     prod = facs[0]
     for f2 in facs[1:]:
         prod = F.mont_mul(FR, prod, f2)
@@ -220,8 +252,7 @@ def _lookup_h_terms_partial(ws, h_ev, l_ev, qact_ev, beta_m):
             if kk != j:
                 pr = F.mont_mul(FR, pr, facs[kk])
         rhs = F.add(FR, rhs, pr)
-    term = F.mont_mul(FR, qact_ev[:, None, :].expand(lhs.shape),
-                      F.sub(FR, lhs, rhs))
+    term = F.mont_mul(FR, _lift_rows(qact_ev, lhs), F.sub(FR, lhs, rhs))
     return _wsum(ws, term)
 
 
@@ -233,22 +264,21 @@ def _j_lookup_h_terms_batch(acc, ws, h_ev, l_ev, qact_ev, beta_m):
 def _perm_chunks_partial(ws, z_ev, v_ev, sig_ev, dpows, qact_ev, xcoset,
                          beta_m, gamma_m):
     """J FULL permutation chunks -> (L, E) weighted sum. z_ev: (L, J, E);
-    v_ev/sig_ev: (L, J, CH, E); dpows: (L, J, CH)."""
-    CH = v_ev.shape[2]
+    v_ev/sig_ev: (L, J, CH, E); dpows: (L, J, CH), proof-independent."""
+    CH = v_ev.shape[-2]
     lhs, rhs = _roll(z_ev, 1), z_ev
+    J, E = dpows.shape[1], xcoset.shape[-1]
+    xc = xcoset[:, None, :].expand(L, J, E)
     for i in range(CH):
-        v = v_ev[:, :, i]
-        sig = sig_ev[:, :, i]
-        bb = beta_m[:, None, None].expand(v.shape)
-        gg = gamma_m[:, None, None].expand(v.shape)
+        v = v_ev[..., i, :]
+        sig = _lift(sig_ev[..., i, :], v)
+        bb, gg = _bc(beta_m, v), _bc(gamma_m, v)
         lhs = F.mont_mul(FR, lhs, F.add(
             FR, v, F.add(FR, F.mont_mul(FR, bb, sig), gg)))
-        did = F.mont_mul(FR, dpows[:, :, i, None].expand(v.shape),
-                         xcoset[:, None, :].expand(v.shape))
+        did = F.mont_mul(FR, dpows[:, :, i, None].expand(L, J, E), xc)
         rhs = F.mont_mul(FR, rhs, F.add(
-            FR, v, F.add(FR, F.mont_mul(FR, bb, did), gg)))
-    term = F.mont_mul(FR, qact_ev[:, None, :].expand(lhs.shape),
-                      F.sub(FR, lhs, rhs))
+            FR, v, F.add(FR, F.mont_mul(FR, bb, _lift(did, v)), gg)))
+    term = F.mont_mul(FR, _lift_rows(qact_ev, lhs), F.sub(FR, lhs, rhs))
     return _wsum(ws, term)
 
 
@@ -261,7 +291,7 @@ def _j_perm_chunks_batch(acc, ws, z_ev, v_ev, sig_ev, dpows, qact_ev,
 def _perm_chains_partial(u, ws, zj_ev, zprev_ev, qfirst_ev):
     """Chain terms for a batch of consecutive z polys."""
     zprev_u = torch.roll(zprev_ev, -EXT_FACTOR * u, dims=-1)
-    term = F.mont_mul(FR, qfirst_ev[:, None, :].expand(zj_ev.shape),
+    term = F.mont_mul(FR, _lift_rows(qfirst_ev, zj_ev),
                       F.sub(FR, zj_ev, zprev_u))
     return _wsum(ws, term)
 
@@ -276,13 +306,13 @@ def _j_perm_chains_batch(u, acc, ws, zj_ev, zprev_ev, qfirst_ev):
 def _j_lookup_h_term(dom_ext, acc, w, h_coeffs, l_coeffs, qact_coeffs,
                      cpow, beta_m):
     """l_coeffs: (L, G, n) stacked lookup-column coeffs for this group."""
-    G = l_coeffs.shape[1]
+    G = l_coeffs.shape[-2]
     qact = _coset(dom_ext, qact_coeffs, cpow)
     h = _coset(dom_ext, h_coeffs, cpow)
     facs = []
     for i in range(G):
-        li = _coset(dom_ext, l_coeffs[:, i], cpow)
-        facs.append(F.add(FR, li, beta_m[:, None].expand(li.shape)))
+        li = _coset(dom_ext, l_coeffs[..., i, :], cpow)
+        facs.append(F.add(FR, li, _bc(beta_m, li)))
     prod = facs[0]
     for f2 in facs[1:]:
         prod = F.mont_mul(FR, prod, f2)
@@ -295,18 +325,19 @@ def _j_lookup_h_term(dom_ext, acc, w, h_coeffs, l_coeffs, qact_coeffs,
             if kk != j:
                 pr = F.mont_mul(FR, pr, facs[kk])
         rhs = F.add(FR, rhs, pr)
-    return F.add(FR, acc, _wmul(w, F.mont_mul(FR, qact, F.sub(FR, lhs, rhs))))
+    t = F.sub(FR, lhs, rhs)
+    return F.add(FR, acc, _wmul(w, F.mont_mul(FR, _lift(qact, t), t)))
 
 
 def _j_lookup_table_term(dom_ext, acc, w, g_coeffs, t_coeffs, m_coeffs,
                          qact_coeffs, cpow, beta_m):
     qact = _coset(dom_ext, qact_coeffs, cpow)
     g_ev = _coset(dom_ext, g_coeffs, cpow)
-    t_ev = _coset(dom_ext, t_coeffs, cpow)
+    t_ev = _lift(_coset(dom_ext, t_coeffs, cpow), g_ev)
     m_ev = _coset(dom_ext, m_coeffs, cpow)
-    bb = beta_m[:, None].expand(t_ev.shape)
-    t0 = F.sub(FR, F.mont_mul(FR, g_ev, F.add(FR, t_ev, bb)), m_ev)
-    return F.add(FR, acc, _wmul(w, F.mont_mul(FR, qact, t0)))
+    t0 = F.sub(FR, F.mont_mul(FR, g_ev, F.add(FR, t_ev, _bc(beta_m, t_ev))),
+               m_ev)
+    return F.add(FR, acc, _wmul(w, F.mont_mul(FR, _lift(qact, t0), t0)))
 
 
 def _j_lookup_acc_term(dom_ext, acc, w, phi_coeffs, h_stack, g_coeffs,
@@ -316,75 +347,77 @@ def _j_lookup_acc_term(dom_ext, acc, w, phi_coeffs, h_stack, g_coeffs,
     phi = _coset(dom_ext, phi_coeffs, cpow)
     sh = F.sub(FR, _roll(phi, 1), phi)
     hsum = torch.zeros_like(phi)
-    for g in range(h_stack.shape[1]):
-        hsum = F.add(FR, hsum, _coset(dom_ext, h_stack[:, g], cpow))
+    for g in range(h_stack.shape[-2]):
+        hsum = F.add(FR, hsum, _coset(dom_ext, h_stack[..., g, :], cpow))
     g_ev = _coset(dom_ext, g_coeffs, cpow)
     t0 = F.add(FR, F.sub(FR, sh, hsum), g_ev)
-    return F.add(FR, acc, _wmul(w, F.mont_mul(FR, qact, t0)))
+    return F.add(FR, acc, _wmul(w, F.mont_mul(FR, _lift(qact, t0), t0)))
 
 
 def _j_sel_poly_term(dom_ext, acc, w, poly_coeffs, sel_coeffs, cpow):
     """sel * poly (lookup_first/lookup_last boundary terms)."""
-    sel = _coset(dom_ext, sel_coeffs, cpow)
     pv = _coset(dom_ext, poly_coeffs, cpow)
+    sel = _lift(_coset(dom_ext, sel_coeffs, cpow), pv)
     return F.add(FR, acc, _wmul(w, F.mont_mul(FR, sel, pv)))
 
 
 def _j_sel_poly_minus_one_term(dom_ext, acc, w, poly_coeffs, sel_coeffs,
                                cpow):
     """sel * (poly - 1) (perm_first/perm_last boundary terms)."""
-    sel = _coset(dom_ext, sel_coeffs, cpow)
     pv = _coset(dom_ext, poly_coeffs, cpow)
+    sel = _lift(_coset(dom_ext, sel_coeffs, cpow), pv)
     onem = _one_like(pv.shape, pv.device)
     return F.add(FR, acc, _wmul(w, F.mont_mul(FR, sel, F.sub(FR, pv, onem))))
 
 
 def _j_perm_chunk_term(dom_ext, acc, w, z_coeffs, v_coeffs, sig_coeffs,
                        qact_coeffs, cpow, xcoset, dpows, beta_m, gamma_m):
-    """v_coeffs/sig_coeffs: (L, CH, n); dpows: (L, CH) delta^i Montgomery."""
-    CH = v_coeffs.shape[1]
+    """v_coeffs/sig_coeffs: (L, CH, n); dpows: (L, CH) delta^i Montgomery,
+    proof-independent, as are xcoset and (may be) sig_coeffs."""
+    CH = v_coeffs.shape[-2]
     qact = _coset(dom_ext, qact_coeffs, cpow)
     z = _coset(dom_ext, z_coeffs, cpow)
     lhs, rhs = _roll(z, 1), z
     for i in range(CH):
-        v = _coset(dom_ext, v_coeffs[:, i], cpow)
-        sig = _coset(dom_ext, sig_coeffs[:, i], cpow)
-        bb = beta_m[:, None].expand(v.shape)
-        gg = gamma_m[:, None].expand(v.shape)
+        v = _coset(dom_ext, v_coeffs[..., i, :], cpow)
+        sig = _lift(_coset(dom_ext, sig_coeffs[..., i, :], cpow), v)
+        bb, gg = _bc(beta_m, v), _bc(gamma_m, v)
         lhs = F.mont_mul(FR, lhs, F.add(
             FR, v, F.add(FR, F.mont_mul(FR, bb, sig), gg)))
         did = F.mont_mul(FR, dpows[:, i][:, None].expand(xcoset.shape),
                          xcoset)
         rhs = F.mont_mul(FR, rhs, F.add(
-            FR, v, F.add(FR, F.mont_mul(FR, bb, did), gg)))
-    return F.add(FR, acc, _wmul(w, F.mont_mul(FR, qact, F.sub(FR, lhs, rhs))))
+            FR, v, F.add(FR, F.mont_mul(FR, bb, _lift(did, v)), gg)))
+    t = F.sub(FR, lhs, rhs)
+    return F.add(FR, acc, _wmul(w, F.mont_mul(FR, _lift(qact, t), t)))
 
 
 def _j_quot_finish(dom_ext, acc, zh_inv, cpow_inv):
-    h_ev = F.mont_mul(FR, acc, zh_inv)
+    h_ev = F.mont_mul(FR, acc, _lift(zh_inv, acc))
     h_coeffs = N.intt(dom_ext, h_ev)
-    return F.mont_mul(FR, h_coeffs, cpow_inv)
+    return F.mont_mul(FR, h_coeffs, _lift(cpow_inv, h_coeffs))
 
 
 def _j_evals_batch(coeffs_stack, xpow):
-    """(L, K, n) stack -> (L, K) evals at one point."""
-    prods = F.mont_mul(FR, coeffs_stack, xpow[:, None].expand(
-        coeffs_stack.shape))
+    """(L, K, n) stack -> (L, K) evals at one point xpow (L, n)."""
+    prods = F.mont_mul(FR, coeffs_stack,
+                       xpow.unsqueeze(-2).expand(coeffs_stack.shape))
     return F.tree_sum_mod(FR, prods, axis=-1)
 
 
 def _shift_down(s, step):
-    """s[:, j] <- s[:, j + step], zero-filled at the top."""
-    return torch.cat([s[:, step:], _zeros((L, step), s.device)], dim=1)
+    """s[..., j] <- s[..., j + step], zero-filled at the top."""
+    return torch.cat([s[..., step:], _zeros(s.shape[:-1] + (step,),
+                                            s.device)], dim=-1)
 
 
 def _j_divide_linear(comb, ce, zm, zim):
     """(f(X) - f(z))/(X - z): subtract ce from the constant term, then
     synthetic division via log-depth suffix sums: b_j = z^-(j+1) S_{j+1}
-    with S_j = sum_{i>=j} a_i z^i."""
+    with S_j = sum_{i>=j} a_i z^i. comb (L, n); ce, zm, zim (L,)."""
     n = comb.shape[-1]
     comb = comb.clone()
-    comb[:, 0] = F.sub(FR, comb[:, 0:1], ce[:, None])[:, 0]
+    comb[..., 0] = F.sub(FR, comb[..., 0], ce)
     zp = F.power_series(FR, zm, n)
     zip_ = F.power_series(FR, zim, n + 1)
     s = F.mont_mul(FR, comb, zp)
@@ -392,20 +425,21 @@ def _j_divide_linear(comb, ce, zm, zim):
     while step < n:
         s = F.add(FR, s, _shift_down(s, step))
         step *= 2
-    return F.mont_mul(FR, _shift_down(s, 1), zip_[:, 1:])
+    return F.mont_mul(FR, _shift_down(s, 1), zip_[..., 1:])
 
 
 def _j_sub_low(m, comb, rc_enc):
     """Subtract an (L, m) Montgomery coefficient block from the low-order
     coefficients of comb (SHPLONK's f_i - r_i with deg r_i < m <= 4)."""
     out = comb.clone()
-    out[:, :m] = F.sub(FR, comb[:, :m], rc_enc)
+    out[..., :m] = F.sub(FR, comb[..., :m], rc_enc)
     return out
 
 
 def _j_combine(coeffs_stack, vpows):
-    """sum_j vpows[j] * coeffs_stack[:, j] -> (L, n), one modular matmul."""
-    return MX.mat_mul_mont(FR, vpows[:, None, :], coeffs_stack)[:, 0]
+    """sum_j vpows[j] * coeffs_stack[:, j] -> (L, n), one modular matmul;
+    vpows (L, C), coeffs_stack (L, C, n)."""
+    return MX.mat_mul_mont(FR, vpows.unsqueeze(-2), coeffs_stack)[..., 0, :]
 
 
 def _j_advice_p0(p0, n, u, values_p0, idx_p0, blind_p0):
@@ -413,28 +447,31 @@ def _j_advice_p0(p0, n, u, values_p0, idx_p0, blind_p0):
     assembly places them in columns [0, p0)), convert to Montgomery and
     append the blinding rows; no iNTT (the table committer takes Lagrange
     values)."""
-    flat = _zeros((L, p0 * n), values_p0.device)
-    if values_p0.shape[1]:
-        flat[:, idx_p0] = values_p0
-    adv = F.to_mont(FR, flat.reshape(L, p0, n))
-    return torch.cat([adv[:, :, :u], blind_p0], dim=2)
+    lead = values_p0.shape[:-1]
+    flat = _zeros(lead + (p0 * n,), values_p0.device)
+    if values_p0.shape[-1]:
+        flat[..., idx_p0] = values_p0
+    adv = F.to_mont(FR, flat.reshape(lead + (p0, n)))
+    return torch.cat([adv[..., :u], blind_p0], dim=-1)
 
 
 def _j_advice(dom, num_advice, n, u, values, scatter_idx, blind):
     """Scatter trace cells into the (L, A, n) advice matrix, convert to
-    Montgomery, append blinding rows, and iNTT to coefficients."""
-    flat = _zeros((L, num_advice * n), blind.device)
+    Montgomery, append blinding rows, and iNTT to coefficients. values:
+    per context (L, cells); blind: (L, A, n - u)."""
+    flat = _zeros(blind.shape[:-2] + (num_advice * n,), blind.device)
     for ctx in range(NUM_CTX):
-        if values[ctx].shape[1]:
-            flat[:, scatter_idx[ctx]] = values[ctx]
-    adv = F.to_mont(FR, flat.reshape(L, num_advice, n))
-    adv = torch.cat([adv[:, :, :u], blind], dim=2)
+        if values[ctx].shape[-1]:
+            flat[..., scatter_idx[ctx]] = values[ctx]
+    adv = F.to_mont(FR, flat.reshape(blind.shape[:-2] + (num_advice, n)))
+    adv = torch.cat([adv[..., :u], blind], dim=-1)
     return adv, N.intt(dom, adv)
 
 
 def _prefix_scan(op, x, identity):
-    """Inclusive prefix combine along the last axis by log-depth shift-and-
-    combine (Hillis-Steele); identity: (L, *, >= n) identity lanes."""
+    """Inclusive prefix combine along the last (row) axis by log-depth
+    shift-and-combine (Hillis-Steele), every leading axis passed through;
+    identity: x-shaped identity lanes."""
     s = 1
     while s < x.shape[-1]:
         x = op(FR, x, F._shift_fill(x, s, identity))
@@ -446,27 +483,28 @@ def _j_lookup_aux(dom, u, lk_cols, m_vals, table_vals, beta_m, rand_h,
                   rand_g, rand_phi):
     """logUp helpers: returns (h_all values, g values, phi values, h coeffs,
     g coeffs, phi coeffs). lk_cols: (L, nlk, n) Montgomery Lagrange
-    values."""
+    values; table_vals: (L, n), proof-independent."""
     n = dom.n
-    nlk = lk_cols.shape[1]
+    nlk = lk_cols.shape[-2]
     ngroups = -(-nlk // LOOKUP_GROUP)
-    denoms = F.add(FR, lk_cols, beta_m[:, None, None].expand(lk_cols.shape))
+    denoms = F.add(FR, lk_cols, _bc(beta_m, lk_cols))
     inv = F.batch_inv(FR, denoms.reshape(L, -1)).reshape(denoms.shape)
     hs = []
     for g in range(ngroups):
-        sl = inv[:, g * LOOKUP_GROUP:(g + 1) * LOOKUP_GROUP, :]
-        hs.append(F.tree_sum_mod(FR, sl, axis=1))
-    h_all = torch.stack(hs, dim=1)
-    tden = F.add(FR, table_vals, beta_m[:, None].expand(table_vals.shape))
+        sl = inv[..., g * LOOKUP_GROUP:(g + 1) * LOOKUP_GROUP, :]
+        hs.append(F.tree_sum_mod(FR, sl, axis=-2))
+    h_all = torch.stack(hs, dim=-2)
+    tden = F.add(FR, _lift(table_vals, m_vals), _bc(beta_m, m_vals))
     g_vals = F.mont_mul(FR, m_vals, F.batch_inv(FR, tden))
-    s_vals = F.sub(FR, F.tree_sum_mod(FR, h_all, axis=1), g_vals)
+    s_vals = F.sub(FR, F.tree_sum_mod(FR, h_all, axis=-2), g_vals)
     act = torch.arange(n, device=s_vals.device) < u
-    s_vals = torch.where(act[None], s_vals, torch.zeros_like(s_vals))
+    s_vals = torch.where(act, s_vals, torch.zeros_like(s_vals))
     pref = _prefix_scan(F.add, s_vals, torch.zeros_like(s_vals))
-    phi = torch.cat([_zeros((L, 1), pref.device), pref[:, :-1]], dim=1)
-    phi = torch.cat([phi[:, : u + 1], rand_phi], dim=1)
-    h_all = torch.cat([h_all[:, :, :u], rand_h], dim=2)
-    g_vals = torch.cat([g_vals[:, :u], rand_g], dim=1)
+    phi = torch.cat([_zeros(pref.shape[:-1] + (1,), pref.device),
+                     pref[..., :-1]], dim=-1)
+    phi = torch.cat([phi[..., : u + 1], rand_phi], dim=-1)
+    h_all = torch.cat([h_all[..., :u], rand_h], dim=-1)
+    g_vals = torch.cat([g_vals[..., :u], rand_g], dim=-1)
     h_coeffs = N.intt(dom, h_all)
     g_coeffs = N.intt(dom, g_vals)
     phi_coeffs = N.intt(dom, phi)
@@ -477,36 +515,40 @@ def _j_perm_z(dom, u, perm_vals, sigma_vals, dpow, wpow, beta_m, gamma_m,
               rand_z):
     """All permutation grand-product polys.
 
-    perm_vals/sigma_vals: (L, P, n); rand_z: (L, nz, n-u-1).
+    perm_vals: (L, P, n); rand_z: (L, nz, n-u-1); sigma_vals (L, P, n),
+    dpow (L, P) and wpow (L, n) are proof-independent.
     Returns (z_lagrange (L, nz, n), z_coeffs (L, nz, n))."""
     n = dom.n
-    P = perm_vals.shape[1]
-    nz = rand_z.shape[1]
+    P = perm_vals.shape[-2]
+    nz = rand_z.shape[-2]
     dev = perm_vals.device
     idv = F.mont_mul(FR, dpow[:, :, None].expand(L, P, n),
                      wpow[:, None, :].expand(L, P, n))
-    bb = beta_m[:, None, None].expand(L, P, n)
-    gg = gamma_m[:, None, None].expand(L, P, n)
-    num = F.add(FR, perm_vals, F.add(FR, F.mont_mul(FR, bb, idv), gg))
-    den = F.add(FR, perm_vals, F.add(FR, F.mont_mul(FR, bb, sigma_vals), gg))
+    bb = _bc(beta_m, perm_vals)
+    gg = _bc(gamma_m, perm_vals)
+    num = F.add(FR, perm_vals, F.add(
+        FR, F.mont_mul(FR, bb, _lift(idv, perm_vals)), gg))
+    den = F.add(FR, perm_vals, F.add(
+        FR, F.mont_mul(FR, bb, _lift(sigma_vals, perm_vals)), gg))
     den_inv = F.batch_inv(FR, den.reshape(L, -1)).reshape(den.shape)
     ratio = F.mont_mul(FR, num, den_inv)
 
-    one_m = _enc_mont_scalar(1, dev)
-    ones_u = one_m[:, None].expand(L, u)
+    lead = perm_vals.shape[1:-2]  # the proof axis, if any
+    one_m = _one_like((L,) + lead + (1,), dev)
+    ones_u = one_m.expand((L,) + lead + (u,))
     chain = one_m
     z_lag = []
     for j in range(nz):
-        sl = ratio[:, j * PERM_CHUNK:(j + 1) * PERM_CHUNK, :u]
-        prod = sl[:, 0]
-        for i in range(1, sl.shape[1]):
-            prod = F.mont_mul(FR, prod, sl[:, i])
+        sl = ratio[..., j * PERM_CHUNK:(j + 1) * PERM_CHUNK, :u]
+        prod = sl[..., 0, :]
+        for i in range(1, sl.shape[-2]):
+            prod = F.mont_mul(FR, prod, sl[..., i, :])
         pref = _prefix_scan(F.mont_mul, prod, ones_u)
-        zvals = torch.cat([one_m[:, None], pref], dim=1)
-        zvals = F.mont_mul(FR, zvals, chain[:, None].expand(zvals.shape))
-        chain = zvals[:, -1]
-        z_lag.append(torch.cat([zvals, rand_z[:, j]], dim=1))
-    z_lag = torch.stack(z_lag, dim=1)  # (L, nz, n)
+        zvals = torch.cat([one_m, pref], dim=-1)
+        zvals = F.mont_mul(FR, zvals, chain.expand(zvals.shape))
+        chain = zvals[..., -1:]
+        z_lag.append(torch.cat([zvals, rand_z[..., j, :]], dim=-1))
+    z_lag = torch.stack(z_lag, dim=-2)  # (L, nz, n)
     return z_lag, N.intt(dom, z_lag)
 
 
@@ -617,16 +659,23 @@ def prove(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
         while True:
             next(gen)
     except StopIteration as e:
-        return e.value
+        proof, timer = e.value
+    LAST_STAGES.clear()
+    LAST_STAGES.update(timer.summary())
+    return proof
 
 
 def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
-               rng_seed: bytes | None = None, rng=None):
+               rng_seed: bytes | None = None, rng=None,
+               coset_cache_mb: int | None = None):
     """Generator form of prove(): yields where device work (MSMs, NTTs,
     term batches) has been enqueued but its device-to-host transfer and
     the transcript hashing that follows have not happened yet. prove()
     drives it to the end; the yield points change scheduling only, never
-    the math."""
+    the math. coset_cache_mb: this prove's coset-cache budget
+    (COSET_CACHE_MB when None; parallel/pipeline.py divides it among the
+    proofs in flight). Returns (the proof's bytes, its StageTimer), whose
+    marks never wait for the device."""
     asm = pk.asm
     k, n, u = asm.k, asm.n, asm.u
     dev = pk.fixed_coeffs.device
@@ -640,7 +689,7 @@ def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
 
     rngd = rng if rng is not None else _ProofRng(rng_seed, dev)
     dstate = _pk_device_state(pk, dom, dom_ext)
-    _timer = StageTimer("prove", stream=None, device=dev)
+    _timer = StageTimer(dev)
 
     tr = Transcript()
     # bind the proof to the circuit: vk digest first, then the statement
@@ -841,7 +890,8 @@ def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
     static_map = static_cos["map"]
     static_cap = STATIC_COSET_MB * (1 << 20) // (L * ext_n * 4)
     cos_ref = dict(static_map)
-    cos_budget = COSET_CACHE_MB * (1 << 20) // (L * ext_n * 4)
+    cache_mb = COSET_CACHE_MB if coset_cache_mb is None else coset_cache_mb
+    cos_budget = cache_mb * (1 << 20) // (L * ext_n * 4)
 
     def coset_fill(names):
         """Compute (and keep refs to) any missing cosets, COS_B names per
@@ -1194,6 +1244,4 @@ def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
         tr.write_point(pt)
 
     _timer.mark("multiopen")
-    LAST_STAGES.clear()
-    LAST_STAGES.update(_timer.summary())
-    return tr.proof_bytes()
+    return tr.proof_bytes(), _timer

@@ -345,14 +345,16 @@ def _batch_inv_nonzero(field: Field, a, one_like):
 
 def power_series(field: Field, base_mont, count: int):
     """[1, b, ..., b^(count-1)] in Montgomery form by log-depth doubling.
-    base_mont: (L,) Montgomery."""
-    out = to_mont(field, const(field, 1, (), base_mont.device))[:, None]
-    bp = base_mont[:, None]
-    while out.shape[1] < count:
-        take = min(out.shape[1], count - out.shape[1])
-        ext = mont_mul(field, out[:, :take], bp.expand(NLIMBS, take))
-        out = torch.cat([out, ext], dim=1)
-        if out.shape[1] < count:
+    base_mont: (L, *batch) Montgomery -> (L, *batch, count)."""
+    out = to_mont(field, const(field, 1, base_mont.shape[1:] + (1,),
+                               base_mont.device))
+    bp = base_mont[..., None]
+    while out.shape[-1] < count:
+        take = min(out.shape[-1], count - out.shape[-1])
+        ext = mont_mul(field, out[..., :take],
+                       bp.expand(base_mont.shape + (take,)))
+        out = torch.cat([out, ext], dim=-1)
+        if out.shape[-1] < count:
             bp = mont_mul(field, bp, bp)
     return out
 

@@ -25,6 +25,15 @@ from . import curve as C
 from . import field as F
 from .field import FQ
 
+# table-MSM calls (one gather + one reduction tree each) and the columns
+# they committed, padding included, since the last reset; on any device
+CALLS = {"msm_tab": 0, "msm_cols": 0}
+
+
+def reset_counts():
+    CALLS["msm_tab"] = 0
+    CALLS["msm_cols"] = 0
+
 
 def num_windows(c: int, max_bits: int = 256) -> int:
     # +1 window absorbs the signed-digit carry out of the top bits
@@ -170,6 +179,8 @@ def _msm_tab(tabXY, scalars, c, W_full, max_bits, row_offset):
     M = 1 << (c - 1)
     K, rows = scalars.shape[1], scalars.shape[2]
     W = num_windows(c, max_bits)
+    CALLS["msm_tab"] += 1
+    CALLS["msm_cols"] += K
     assert W <= W_full, (W, W_full)
 
     digits = signed_digits(scalars, c, max_bits).permute(1, 0, 2)  # K,W,rows

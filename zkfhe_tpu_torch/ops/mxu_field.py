@@ -2,8 +2,9 @@
 
 ``mat_mul_mont(field, A, B)``: A (L, M, K) x B (L, K, N) -> (L, M, N) with
 out = (sum_k A_mk * B_kn) * R^-1 mod p, the contraction form of
-``field.mont_mul``. The prover uses it for every evaluation of the opened
-polynomials and for the SHPLONK folds.
+``field.mont_mul``; leading batch dims (L, *batch, M, K) are one launch.
+The prover uses it for every evaluation of the opened polynomials and for
+the SHPLONK folds, the batched prover with a proof axis.
 
 On a CUDA tensor it runs the JAX package's limb-plane scheme:
 
@@ -162,21 +163,35 @@ def _pad_to(x, dim: int, size: int):
 
 
 def _plane_product(lhs, rhs):
-    """(m, k) x (k, n) int8 planes -> their int32 product, through the
-    library's float64 matmul (exact: every partial sum is an integer below
-    2^31)."""
+    """(*batch, m, k) x (*batch, k, n) int8 planes -> their int32 product,
+    through the library's float64 matmul (exact: every partial sum is an
+    integer below 2^31); one call for the whole batch."""
     return torch.matmul(lhs.to(torch.float64),
                         rhs.to(torch.float64)).to(torch.int32)
 
 
+def _common_batch(A, B):
+    """Broadcast the batch dims of A (L, *a, M, K) and B (L, *b, K, N); an
+    operand with fewer batch dims is shared along the missing leading
+    ones."""
+    batch = torch.broadcast_shapes(A.shape[1:-2], B.shape[1:-2])
+
+    def lift(X):
+        X = X.reshape(X.shape[:1] + (1,) * (len(batch) + 3 - X.dim())
+                      + X.shape[1:])
+        return X.expand(X.shape[:1] + batch + X.shape[-2:])
+    return batch, lift(A), lift(B)
+
+
 def mat_mul_mont_planes(field: F.Field, A, B):
     """The limb-plane form of mat_mul_mont, on any device."""
-    L, M, Kd = A.shape
-    _, K2, N = B.shape
+    batch, A, B = _common_batch(A, B)
+    L, (M, Kd), (K2, N) = A.shape[0], A.shape[-2:], B.shape[-2:]
     assert L == NLIMBS and K2 == Kd and Kd <= MAX_K
-    lhs = to_planes7(A).permute(1, 0, 2).reshape(M * NPLANES, Kd)
-    rhs = to_planes7(B).permute(1, 0, 2).reshape(Kd, NPLANES * N)
-    C = _plane_product(lhs, rhs).reshape(M, NPLANES, NPLANES, N)
+    # rows (m, u) and columns (v, n) of each plane product
+    lhs = to_planes7(A).movedim(0, -2).reshape(batch + (M * NPLANES, Kd))
+    rhs = to_planes7(B).movedim(0, -2).reshape(batch + (Kd, NPLANES * N))
+    C = _plane_product(lhs, rhs).reshape(batch + (M, NPLANES, NPLANES, N))
     # split before the pair fold: fold sums of raw C would pass 2^31
     # (C is non-negative: every plane value is in [0, 127])
     C_lo = C & 0xFFFF
@@ -187,12 +202,13 @@ def mat_mul_mont_planes(field: F.Field, A, B):
                                   for v in range(NPLANES)],
                          torch.int64, A.device)
 
-    def fold(X):  # (M, P, P, N) -> (S, M, N), S = 2P-1
-        t = torch.zeros((NWIDE, M, N), dtype=X.dtype, device=X.device)
-        return t.index_add_(0, pair, X.reshape(M, NPLANES * NPLANES,
-                                               N).movedim(1, 0))
+    def fold(X):  # (*batch, M, P, P, N) -> (S, *batch, M, N), S = 2P-1
+        t = torch.zeros((NWIDE,) + batch + (M, N), dtype=X.dtype,
+                        device=X.device)
+        return t.index_add_(0, pair, X.reshape(
+            batch + (M, NPLANES * NPLANES, N)).movedim(-2, 0))
 
-    limbs = _wide_planes_to_limbs(fold(C_lo), fold(C_hi))  # (NL, M, N)
+    limbs = _wide_planes_to_limbs(fold(C_lo), fold(C_hi))  # (NL, *b, M, N)
     return mont_reduce_wide(field, limbs)
 
 
@@ -212,7 +228,15 @@ def _plain_tree_sum(field, x):
 def plain_mat_mul_mont(field: F.Field, A, B):
     """The plain version: a mont_mul per product and a modular tree sum
     over k (plain int64-lane ops), in blocks of output entries so that a
-    block's products stay below 2^16 lanes on the CPU (2^20 on a card)."""
+    block's products stay below 2^16 lanes on the CPU (2^20 on a card);
+    one batch entry at a time."""
+    if A.dim() > 3 or B.dim() > 3:
+        batch, A, B = _common_batch(A, B)
+        A = A.reshape((NLIMBS, -1) + A.shape[-2:])
+        B = B.reshape((NLIMBS, -1) + B.shape[-2:])
+        out = torch.stack([plain_mat_mul_mont(field, A[:, i], B[:, i])
+                           for i in range(A.shape[1])], dim=1)
+        return out.reshape((NLIMBS,) + batch + out.shape[-2:])
     L, M, Kd = A.shape
     N = B.shape[2]
     budget = (1 << 20) if A.is_cuda else (1 << 16)
@@ -231,7 +255,9 @@ def plain_mat_mul_mont(field: F.Field, A, B):
 
 
 def mat_mul_mont(field: F.Field, A, B):
-    """A (L, M, K) x B (L, K, N) -> (L, M, N) = (sum_k A B) R^-1 mod p."""
+    """A (L, *batch, M, K) x B (L, *batch, K, N) -> (L, *batch, M, N) =
+    (sum_k A B) R^-1 mod p; batch dims broadcast, and a batch is one
+    launch of the plane product."""
     if A.is_cuda or B.is_cuda:
         out = mat_mul_mont_planes(field, A, B)
         LAUNCHES["mat_mul_mont"] += 1
