@@ -15,8 +15,9 @@ Phases, each printed with its time; any failure exits non-zero:
 4. matmul: ``mxu_field.mat_mul_mont`` (7-bit limb planes, float64 product)
    against its plain mont_mul + tree-sum chain at the prover's evaluation
    shape (20, 128, 8192) x (20, 8192, 5) and its SHPLONK fold shape
-   (20, 1, 64) x (20, 64, 8192), and at the batch's shapes, the same with
-   a proof axis of 8 after the limb axis: exact equality; then both timed;
+   (20, 1, 64) x (20, 64, 8192), at the batch's shapes, the same with a
+   proof axis of 8 after the limb axis, and at k=15's, n = 32768 in place
+   of 8192: exact equality; then both timed;
 5. mock: ``cli.main`` mock of data/bfv/bfv.in at k=13: 0 violations, 5121
    public values, cell count and trace digest equal to the JAX package's
    (tests/fixtures/torch_reference_k13.json);
@@ -38,23 +39,45 @@ Phases, each printed with its time; any failure exits non-zero:
    depth 2, same seeds: equal to the batch's first four proofs. Phases
    9-11 print the time per proof, the table-MSM calls per proof, the
    peak device memory and the batch's stage times;
-12. timing: each kernel's wrapper again, at the shape and field of its
-   largest launch in phases 5-11 (bfly, which no module calls, at
+12. keccak: ``models/keccak.keccak256_circuit`` of the empty message and
+   of a 200-byte message (two absorbed blocks at the 136-byte rate)
+   through ``KeccakChip`` on the card, each checked with
+   ``trace/compile.assert_satisfied`` (0 violations); the exposed words
+   must equal ``keccak_host.keccak256``'s, and the layout and trace
+   digests the JAX package's (tests/fixtures/torch_reference_keccak.json);
+   cells and seconds printed;
+13. large parameters: ``cli.main`` mock of the N=2048, Q=2^120-119
+   circuit at k=15 on ``bfv.generate_input(seed=15)`` written into the
+   temporary directory: 0 violations, 10241 public values and the JAX
+   package's layout sizes (tests/fixtures/torch_reference_k15.json); then
+   ``zkfhe_tpu_torch.scripts.bench_k15.run``: keygen, a cold and a timed
+   prove, verify. The keygen's layout (gates, copies, constants, instance
+   cells, bit bounds) and its fixed columns' values must have the JAX
+   package's digests, the vk shape, delta and column counts its values,
+   the proof length the JAX protocol's for that shape, and the port's
+   verify must accept the proof and reject it with one byte flipped and
+   with one public value changed; the stage times, the peak device memory
+   of keygen and of the timed prove and its table-MSM calls are printed;
+14. timing: each kernel's wrapper again, at the shape and field of its
+   largest launch in phases 5-13 (bfly, which no module calls, at
    bfly_dif's), on fresh random inputs, held to its plain version there
    too (exact equality), then timed with its plain version; plus one NTT
    of the same lanes through ``ntt.ntt``, whose time per stage shows what
    the stage's copies around ``bfly_dif`` cost;
-13. the ``matmul`` and ``kernels`` JSON lines: per kernel, its launches in
-   phases 5-7 and in the batch and the stream (each must be > 0 in each;
-   bfly's launches are those of its check in phase 3), its largest
-   mismatch over phases 3 and 12, its time, its plain version's time and
-   its bound.
+15. the ``matmul``, ``proof_paths``, ``k15`` and ``kernels`` JSON lines:
+   per kernel, its launches in phases 5-7, in the batch, the stream, the
+   keccak phase and the k=15 phase (each must be > 0 for mont_mul, add,
+   sub and bfly_dif, except bfly_dif in the keccak phase, whose circuit
+   runs no NTT; bfly's launches are those of its check in phase 3), its
+   largest mismatch over phases 3 and 14, its time, its plain version's
+   time and its bound.
 
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
-``python3 chip_smoke.py --profile`` also prints, for mock, keygen, prove
-and a second run of the batch, the device busy share and the kernels that
-took the most device time; ``--save-proof PATH`` keeps a copy of the
-verified k=13 snark.
+``python3 chip_smoke.py --profile`` also prints, for mock, keygen, prove,
+a second run of the batch and the timed k=15 prove, the device busy share
+and the kernels that took the most device time; ``--save-proof DIR``
+writes the verified k=13 snark (``torch_proof_k13.npz``) and the k=15
+proof with its instance and vk (``torch_proof_k15.npz``) there.
 """
 from __future__ import annotations
 
@@ -72,7 +95,10 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_reference_k13.json")
+FIXTURES = os.path.join(ROOT, "tests", "fixtures")
+FIXTURE = os.path.join(FIXTURES, "torch_reference_k13.json")
+FIXTURE_K15 = os.path.join(FIXTURES, "torch_reference_k15.json")
+FIXTURE_KECCAK = os.path.join(FIXTURES, "torch_reference_keccak.json")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, the non-tensor-core
 # 32-bit rate and the dense int8 tensor-core rate. There is no int32 row in
@@ -110,6 +136,8 @@ MATMUL_SHAPES = {
     "shplonk fold": ((), 1, 64, 8192),
     "batch evaluations": ((BATCH_B,), 128, 8192, 5),
     "batch shplonk fold": ((BATCH_B,), 1, 64, 8192),
+    "k15 evaluations": ((), 128, 32768, 5),
+    "k15 shplonk fold": ((), 1, 64, 32768),
 }
 MATMUL_REPLACES = "zkfhe_tpu/ops/mxu_field.py:125"
 SOURCE = "zkfhe_tpu_torch/csrc/field_kernels.cu"
@@ -120,7 +148,8 @@ FAILURES = []
 # --profile: run mock and keygen under torch.profiler (diagnostic; the
 # profiler's own overhead inflates the wall times it reports)
 PROFILE = "--profile" in sys.argv[1:]
-# --save-proof PATH: copy the verified k=13 snark (proof + instance) there
+# --save-proof DIR: write the verified k=13 snark (proof + instance) and
+# the k=15 proof, instance and vk there
 SAVE_PROOF = (sys.argv[sys.argv.index("--save-proof") + 1]
               if "--save-proof" in sys.argv[1:] else None)
 
@@ -335,17 +364,18 @@ def time_kernels(F, K, N, dev, largest, errs):
 
 
 def profile_report(prof, wall_s, name):
-    """Device busy share and the kernels that took the most device time."""
+    """Device busy share (``profiling.device_busy_s`` over the wall time,
+    as bench_k15 reports it) and the kernels that took the most device
+    time."""
+    from zkfhe_tpu_torch.utils.profiling import device_busy_s
     per = {}
-    busy = 0.0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            busy += us
             n, t = per.get(e.name, (0, 0.0))
-            per[e.name] = (n + 1, t + us)
+            per[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    busy = device_busy_s(prof)
     print(f"[profile] {name}: wall {wall_s:.3f}s, device busy "
-          f"{busy / 1e6:.3f}s ({100 * busy / 1e6 / wall_s:.1f}%)")
+          f"{busy:.3f}s ({100 * busy / wall_s:.1f}%)")
     for kname, (n, us) in sorted(per.items(), key=lambda kv: -kv[1][1])[:12]:
         print(f"[profile]   {us / 1e3:10.3f} ms {n:7d}x  {kname[:90]}")
 
@@ -359,6 +389,7 @@ def profile_prove_proper(dev, data_dir, params_dir):
     from zkfhe_tpu_torch.backend import prover as PV
     from zkfhe_tpu_torch.backend import srs as SRS
     from zkfhe_tpu_torch.models import bfv
+    from zkfhe_tpu_torch.utils.profiling import maybe_trace
     params = bfv.BfvParams()
     inputs = bfv.CircuitInput.from_json(
         os.path.join(data_dir, "bfv", "bfv.in")).to_arrays(params, dev)
@@ -372,9 +403,7 @@ def profile_prove_proper(dev, data_dir, params_dir):
     torch.cuda.synchronize()
     print(f"[profile] first prove with this pk: {time.time() - t0:.3f}s "
           f"{PV.LAST_STAGES}")
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with maybe_trace(enabled=True) as prof:
         t0 = time.time()
         PV.prove(pk, srs, circuit, inputs, rng_seed=b"smoke-2")
         torch.cuda.synchronize()
@@ -475,9 +504,8 @@ def check_batch_and_stream(K, MX, dev, data_dir, params_dir):
     print(f"[smoke]   batch stages: {r_b['stages']}")
     print(f"[smoke]   serial stages: {r_ser['stages']}")
     if PROFILE:
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
+        from zkfhe_tpu_torch.utils.profiling import maybe_trace
+        with maybe_trace(enabled=True) as prof:
             t0 = time.time()
             BT.prove_batch(pk, srs, circuit, inputs, rng_seeds=seeds)
             torch.cuda.synchronize()
@@ -486,30 +514,153 @@ def check_batch_and_stream(K, MX, dev, data_dir, params_dir):
     return per
 
 
+def check_keccak(K, MX, MSM, cli, dev):
+    """Phase 12: the keccak256 circuits of the JAX fixture on the card;
+    returns the path's measurements (both circuits in one count)."""
+    from zkfhe_tpu_torch.models import keccak as KC
+    from zkfhe_tpu_torch.models import keccak_host as KH
+    from zkfhe_tpu_torch.ops import field as F
+    from zkfhe_tpu_torch.trace import compile as TC
+    from zkfhe_tpu_torch.utils import convert as CV
+    with open(FIXTURE_KECCAK) as f:
+        ref = json.load(f)
+
+    def both():
+        for label, want in ref.items():
+            t0 = time.time()
+            msg = bytes.fromhex(want["message_hex"])
+            bits = torch.as_tensor(KC.message_bits(msg), device=dev)
+            bld, values, instance = TC.run_circuit(
+                KC.keccak256_circuit(len(msg)), {"bits": bits},
+                F.zero((), dev))
+            layout = TC.snapshot_layout(bld)
+            torch.cuda.synchronize()
+            t_wit = time.time() - t0
+            try:
+                TC.assert_satisfied(layout, values, F.zero((), dev))
+            except AssertionError as e:
+                FAILURES.append(f"keccak256 ({label}): {e}")
+            words = F.decode(F.FR, instance)
+            host = KH.keccak256(msg)
+            if words != [int.from_bytes(host[4 * w:4 * w + 4], "little")
+                         for w in range(8)]:
+                FAILURES.append(f"keccak256 ({label}) words differ from "
+                                f"keccak_host's")
+            got = {"sizes": layout.sizes,
+                   "layout_digest": cli.trace_digest(
+                       CV.layout_arrays(layout)),
+                   "trace_digest": cli.trace_digest(
+                       list(values) + [instance])}
+            for key, val in got.items():
+                if val != want[key]:
+                    FAILURES.append(f"keccak256 ({label}) {key}: port {val} "
+                                    f"!= JAX {want[key]}")
+            print(f"[smoke]   keccak256 of {len(msg)} bytes: "
+                  f"{sum(layout.sizes)} cells, witness + layout "
+                  f"{t_wit:.3f}s, witness + layout + mock check "
+                  f"{time.time() - t0:.3f}s; digest {bytes(host).hex()}")
+
+    _, res = run_path(K, MX, MSM, "keccak (mock of both circuits)", both)
+    return res
+
+
+def check_k15(K, MX, MSM, cli, dev, tmp):
+    """Phase 13: mock of the k=15 circuit through cli.main, then
+    bench_k15.run (keygen, cold and timed prove, verify); returns the
+    mock's and the run's measurements and the run's result."""
+    from zkfhe_tpu_torch.backend import keygen as KG
+    from zkfhe_tpu_torch.backend import verifier as VF
+    from zkfhe_tpu_torch.models import bfv
+    from zkfhe_tpu_torch.scripts import bench_k15 as BK
+    from zkfhe_tpu_torch.utils import convert as CV
+    with open(FIXTURE_K15) as f:
+        ref = json.load(f)
+    params = bfv.BfvParams(**ref["params"])
+    os.makedirs(os.path.join(tmp, "data", "k15"))
+    with open(os.path.join(tmp, "data", "k15", "k15.in"), "w") as f:
+        json.dump(vars(bfv.generate_input(params, seed=ref["input_seed"])),
+                  f)
+    mock, c_mock, l_mock = drive(
+        K, MX, cli, ["--name", "k15", "-k", str(ref["k"]), "--n",
+                     str(params.n), "--q", str(params.q), "--input",
+                     "k15/k15.in", "--data-path", os.path.join(tmp, "data"),
+                     "--config-path", os.path.join(tmp, "configs"), "mock"],
+        "mock (N=2048, Q=2^120-119, k=15)")
+    want = dict(ref["mock"], violations=0)
+    for key in ("violations", "public_values", "sizes", "cells",
+                "trace_digest"):
+        if key in want and mock.get(key) != want[key]:
+            FAILURES.append(f"k=15 mock {key}: port {mock.get(key)} != JAX "
+                            f"{want[key]}")
+    print(f"[smoke] k=15 mock: {mock}")
+
+    (result, made), res = run_path(
+        K, MX, MSM, "k=15 keygen, prove (cold, timed), verify",
+        lambda: BK.run(ref["k"], params.n, dev, os.path.join(ROOT, "params"),
+                       os.path.join(tmp, "k15_trace") if PROFILE else None))
+    pk, proof, inst = made["pk"], made["proof"], made["instance"]
+    t0 = time.time()
+    for key, val, jax_val in (
+            ("layout digest", cli.trace_digest(CV.layout_arrays(
+                pk.asm.layout)), ref["mock"]["layout_digest"]),
+            ("fixed-column digest", cli.trace_digest(CV.fixed_arrays(
+                pk.asm)), ref["keygen"]["fixed_digest"]),
+            ("vk shape", pk.vk.shape, ref["keygen"]["shape"]),
+            ("delta", pk.vk.delta, ref["keygen"]["delta"]),
+            ("fixed commitments", len(pk.vk.fixed_commits),
+             ref["keygen"]["num_fixed"]),
+            ("sigma commitments", len(pk.vk.sigma_commits),
+             ref["keygen"]["num_sigma"]),
+            ("proof length", len(proof), ref["proof_len"])):
+        if val != jax_val:
+            FAILURES.append(f"k=15 {key}: port {val} != JAX {jax_val}")
+    print(f"[smoke] k=15 keygen's layout and fixed columns, vk shape, delta, "
+          f"column counts, proof length against the JAX package's: "
+          f"{time.time() - t0:.3f}s")
+    if not result["verify_ok"]:
+        FAILURES.append("k=15: the port's verify rejected the proof")
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    inst_bad = [inst[0] + 1] + inst[1:]
+    for label, pf, pub in (("one proof byte flipped", bytes(bad), inst),
+                           ("one public value changed", proof, inst_bad)):
+        ok = VF.verify(pk.vk, pf, pub)
+        print(f"[smoke] k=15 verify with {label}: {ok}")
+        if ok:
+            FAILURES.append(f"k=15 verify accepted a proof with {label}")
+    print(f"[smoke] k=15 result: {json.dumps(result)}")
+    if SAVE_PROOF:
+        os.makedirs(SAVE_PROOF, exist_ok=True)
+        vk_file = os.path.join(tmp, "k15.vk.npz")
+        KG.save_vk(pk.vk, vk_file)
+        with open(vk_file, "rb") as f:
+            vk_bytes = f.read()
+        np.savez_compressed(
+            os.path.join(SAVE_PROOF, "torch_proof_k15.npz"),
+            proof=np.frombuffer(proof, dtype=np.uint8),
+            instance=np.asarray([str(v) for v in inst]),
+            vk=np.frombuffer(vk_bytes, dtype=np.uint8))
+    return (c_mock, l_mock), res, result
+
+
 def drive(K, MX, cli, argv, name):
     """One CLI verb with the launch counts set to 0 just before it and read
     just after; returns (result dict, counts, the (shape, field) of each
     kernel's largest launch). With
     --profile the verb runs under torch.profiler and the device busy share
     and top kernels are printed."""
+    from zkfhe_tpu_torch.utils.profiling import maybe_trace
     res = {}
     torch.cuda.synchronize()
     K.reset_counts()
     MX.reset_counts()
-    prof = None
-    if PROFILE:
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        prof = torch.profiler.profile(activities=acts)
-        prof.__enter__()
-    t0 = time.time()
-    try:
-        rc = cli.main(argv, out=res)
-        torch.cuda.synchronize()
-    finally:
-        wall = time.time() - t0
-        if prof is not None:
-            prof.__exit__(None, None, None)
+    with maybe_trace(enabled=PROFILE) as prof:
+        t0 = time.time()
+        try:
+            rc = cli.main(argv, out=res)
+            torch.cuda.synchronize()
+        finally:
+            wall = time.time() - t0
     counts, largest = dict(K.LAUNCHES), dict(K.LARGEST)
     counts.update(MX.LAUNCHES)
     print(f"[smoke] {name}: {wall:.3f}s rc={rc} "
@@ -557,6 +708,7 @@ def main():
     from zkfhe_tpu_torch import native as NAT
     from zkfhe_tpu_torch.ops import field as F
     from zkfhe_tpu_torch.ops import field_kernels as K
+    from zkfhe_tpu_torch.ops import msm as MSM
     from zkfhe_tpu_torch.ops import mxu_field as MX
     from zkfhe_tpu_torch.ops import ntt as N
     with open(FIXTURE) as f:
@@ -578,7 +730,7 @@ def main():
     print(f"[smoke] mock: {mock}")
 
     tmp = tempfile.mkdtemp(prefix="zkfhe_smoke_")
-    paths = None
+    paths = r_kc = k15 = None
     try:
         os.makedirs(os.path.join(tmp, "data", "bfv"))
         for name in ("bfv_empty.in", "bfv.in"):
@@ -611,9 +763,9 @@ def main():
             attempt("verify", check_verify, cli, base, pv["snark"], ref)
             print(f"[smoke] verify phase: {time.time() - t0:.3f}s")
             if SAVE_PROOF:
-                os.makedirs(os.path.dirname(os.path.abspath(SAVE_PROOF)),
-                            exist_ok=True)
-                shutil.copy(pv["snark"], SAVE_PROOF)
+                os.makedirs(SAVE_PROOF, exist_ok=True)
+                shutil.copy(pv["snark"], os.path.join(
+                    SAVE_PROOF, "torch_proof_k13.npz"))
             if PROFILE:
                 attempt("profile of prove proper", profile_prove_proper, dev,
                         os.path.join(tmp, "data"),
@@ -624,6 +776,10 @@ def main():
                         os.path.join(ROOT, "params"))
         print(f"[smoke] serial, batch and stream phases: "
               f"{time.time() - t0:.3f}s")
+        r_kc = attempt("keccak", check_keccak, K, MX, MSM, cli, dev)
+        t0 = time.time()
+        k15 = attempt("k=15", check_k15, K, MX, MSM, cli, dev, tmp)
+        print(f"[smoke] k=15 phase: {time.time() - t0:.3f}s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -641,16 +797,25 @@ def main():
     zero = dict.fromkeys(list(KERNELS) + ["mat_mul_mont"], 0)
     c_b = paths["batch"][0]["counts"] if paths else zero
     c_s = paths["stream"][0]["counts"] if paths else zero
-    for ph, c in (("prove_batch", c_b), ("prove_stream", c_s)):
-        for k in [k for k in KERNELS if k != "bfly"] + ["mat_mul_mont"]:
+    c_kc = r_kc["counts"] if r_kc else zero
+    (c_k15m, l_k15m), r_k15, k15_result = k15 or ((zero, {}), None, None)
+    c_k15 = {k: c_k15m[k] + (r_k15["counts"][k] if r_k15 else 0)
+             for k in zero}
+    on_path = [k for k in KERNELS if k != "bfly"]
+    for ph, c, want in (("prove_batch", c_b, on_path + ["mat_mul_mont"]),
+                        ("prove_stream", c_s, on_path + ["mat_mul_mont"]),
+                        ("keccak", c_kc, ["mont_mul", "add", "sub"]),
+                        ("k=15", c_k15, on_path + ["mat_mul_mont"])):
+        for k in want:
             if c[k] == 0:
                 FAILURES.append(f"kernel {k} never launched in {ph}")
-    # each kernel's largest launch over every driven path: the CLI verbs
-    # and the serial, batch and stream proofs
+    # each kernel's largest launch over every driven path: the CLI verbs,
+    # the serial, batch and stream proofs, keccak and k=15
     l_paths = [r["largest"] for r, _ in paths.values()] if paths else []
+    l_paths += [r["largest"] for r in (r_kc, r_k15) if r] + [l_k15m]
     largest = {}
     for k in KERNELS:
-        seen = [v for v in [l[k] for l in [l_mock, l_kg, l_pv] + l_paths]
+        seen = [v for v in [l.get(k) for l in [l_mock, l_kg, l_pv] + l_paths]
                 if v is not None]
         if seen:
             largest[k] = max(seen, key=lambda v: v[0].numel())
@@ -667,13 +832,15 @@ def main():
         "epilogue", source="zkfhe_tpu_torch/ops/mxu_field.py",
         replaces=MATMUL_REPLACES, launches=c_pv["mat_mul_mont"],
         launches_batch=c_b["mat_mul_mont"],
-        launches_stream=c_s["mat_mul_mont"], shapes=matmul)}))
+        launches_stream=c_s["mat_mul_mont"],
+        launches_k15=c_k15["mat_mul_mont"], shapes=matmul)}))
     print(json.dumps({"proof_paths": {
         name: dict(proofs=nb, **{key: r[key] for key in (
             "wall_s", "per_proof_s", "peak_gb", "msm_calls_per_proof",
             "msm_cols_per_proof", "counts")},
             **({"stages": r["stages"]} if "stages" in r else {}))
         for name, (r, nb) in paths.items()}}))
+    print(json.dumps({"k15": k15_result}))
     line = {"kernels": [dict(
         name=k, route="cuda", source=SOURCE,
         replaces=KERNELS[k]["replaces"], launches=launches[k],
@@ -681,6 +848,7 @@ def main():
            {"launches_mock": c_mock[k], "launches_keygen": c_kg[k],
             "launches_prove": c_pv[k]}),
         launches_batch=c_b[k], launches_stream=c_s[k],
+        launches_keccak=c_kc[k], launches_k15=c_k15[k],
         max_abs_err=errs[k], library_ms=None, **timing[k])
         for k in KERNELS]}
     print(json.dumps(line))

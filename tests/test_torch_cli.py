@@ -29,7 +29,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "zkfhe_tpu_torch.backend.verifier",
             "zkfhe_tpu_torch.ops.mxu_field", "zkfhe_tpu_torch.native",
             "zkfhe_tpu_torch.backend.batch",
-            "zkfhe_tpu_torch.parallel.pipeline"]
+            "zkfhe_tpu_torch.parallel.pipeline",
+            "zkfhe_tpu_torch.models.keccak",
+            "zkfhe_tpu_torch.scripts.bench_k15",
+            "zkfhe_tpu_torch.utils.profiling"]
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m == 'jax' or "

@@ -11,7 +11,9 @@ own keygen, and proves with the JAX draws replayed through ``prove``'s
 the port's proof. Exact throughout: np.array_equal on limbs, == on bytes,
 ints and lists."""
 import importlib.util
+import json
 import os
+import time
 
 import numpy as np
 import jax.numpy as jnp
@@ -186,6 +188,28 @@ def test_stage_timer_marks_in_order():
         timer.mark(name)
     assert list(timer.summary()) == ["a", "b", "c"]
     assert all(v >= 0 for v in timer.summary().values())
+
+
+def test_stage_timer_stage_dump_and_trace(tmp_path):
+    timer = TPROF.StageTimer("cpu")
+    timer.mark("a")
+    with timer.stage("b", sync=True):
+        time.sleep(0.05)
+    timer.mark("c")
+    got = timer.summary()
+    assert list(got) == ["a", "b", "c"] and got["b"] >= 0.05
+    timer.dump(str(tmp_path / "stages.json"))
+    with open(tmp_path / "stages.json") as f:
+        assert json.load(f) == got
+    with TPROF.maybe_trace(None) as prof:
+        assert prof is None
+    with TPROF.maybe_trace(enabled=True) as prof:
+        torch.ones(8) + 1
+    assert prof is not None and TPROF.device_busy_s(prof) == 0.0
+    with TPROF.maybe_trace(str(tmp_path / "trace")) as prof:
+        torch.ones(8) + 1
+    assert os.path.exists(tmp_path / "trace" / "trace.json")
+    assert TPROF.device_busy_s(prof) == 0.0  # no device traced on the CPU
 
 
 class _Replay:

@@ -181,3 +181,11 @@ def test_srs_generate_matches_jax():
         assert np.array_equal(np.asarray(j), TF.to_numpy(t))
     assert (js.g2_gen, js.g2_tau) == (ts.g2_gen, ts.g2_tau)
     assert JSRS.lagrange_scalars(9) == TSRS.lagrange_scalars(9)
+
+
+def test_srs_g1_points_matches_jax():
+    params = os.path.join(ROOT, "params")
+    js, ts = JSRS.load(10, params), TSRS.load(10, params, device="cpu")
+    assert [(p.x, p.y, p.infinity) for p in ts.g1_points(5)] == \
+        [(p.x, p.y, p.infinity) for p in js.g1_points(5)]
+    assert len(ts.g1_points()) == 1 << 10

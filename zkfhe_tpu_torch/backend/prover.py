@@ -40,6 +40,7 @@ from ..trace.builder import CTX_LK, CTX_P0, LOOKUP_BITS, NUM_CTX
 from ..trace.compile import make_witgen, make_witgen_p0
 from ..utils.profiling import StageTimer
 from . import protocol as PROTO
+from . import verifier as VF
 from .assembly import EXT_FACTOR, LOOKUP_GROUP, PERM_CHUNK
 from .keygen import ProvingKey, make_committer, vk_digest
 from .srs import SRS
@@ -49,6 +50,9 @@ L = F.NLIMBS
 
 # per-stage wall-clock of the most recent prove()
 LAST_STAGES: dict = {}
+# report of the most recent prove(..., debug=True): {"terms": the failing
+# rows of each constraint term, "h_tail_nonzero_limbs", "identity"}
+LAST_DEBUG: dict = {}
 
 # polys per coset-NTT launch in the quotient cache fill; one launch's stack
 # is L*COS_B*8n*4 bytes (168 MB at k=13)
@@ -647,14 +651,21 @@ def _pk_device_state(pk: ProvingKey, dom, dom_ext) -> dict:
 
 
 def prove(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
-          rng_seed: bytes | None = None, rng=None) -> bytes:
+          rng_seed: bytes | None = None, rng=None,
+          debug: bool = False) -> bytes:
     """Produce a proof on the device of the pk's tensors.
 
     Blinding comes from ``rng`` when given (any object whose
     ``draw(rows, cols)`` returns a (20, rows, cols) Montgomery limb tensor
     on that device; the draws are requested in protocol order), else from
-    a ``_ProofRng`` seeded by ``rng_seed`` (os.urandom when None)."""
-    gen = _prove_gen(pk, srs, circuit_fn, inputs, rng_seed=rng_seed, rng=rng)
+    a ``_ProofRng`` seeded by ``rng_seed`` (os.urandom when None).
+    ``debug=True`` also checks every constraint term on the domain, the
+    quotient's tail and the verifier's identity at x, prints what it finds
+    as the JAX package does and keeps it in ``LAST_DEBUG``; the proof is
+    the same either way."""
+    report = {} if debug else None
+    gen = _prove_gen(pk, srs, circuit_fn, inputs, rng_seed=rng_seed, rng=rng,
+                     debug=report)
     try:
         while True:
             next(gen)
@@ -662,12 +673,15 @@ def prove(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
         proof, timer = e.value
     LAST_STAGES.clear()
     LAST_STAGES.update(timer.summary())
+    if debug:
+        LAST_DEBUG.clear()
+        LAST_DEBUG.update(report)
     return proof
 
 
 def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
                rng_seed: bytes | None = None, rng=None,
-               coset_cache_mb: int | None = None):
+               coset_cache_mb: int | None = None, debug: dict | None = None):
     """Generator form of prove(): yields where device work (MSMs, NTTs,
     term batches) has been enqueued but its device-to-host transfer and
     the transcript hashing that follows have not happened yet. prove()
@@ -675,7 +689,8 @@ def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
     the math. coset_cache_mb: this prove's coset-cache budget
     (COSET_CACHE_MB when None; parallel/pipeline.py divides it among the
     proofs in flight). Returns (the proof's bytes, its StageTimer), whose
-    marks never wait for the device."""
+    marks never wait for the device. debug: a dict that receives the
+    debug report (_debug_terms_on_domain, _debug_at_x; None skips them)."""
     asm = pk.asm
     k, n, u = asm.k, asm.n, asm.u
     dev = pk.fixed_coeffs.device
@@ -839,13 +854,27 @@ def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
     fin_zr = commit_vals_async(zr_vals)
     yield  # grand-product + random commits enqueued
     _timer.mark("perm_z")
-    del perm_vals, adv
+    del perm_vals
+    if debug is None:
+        del adv
     polys.add_stack([f"perm_z{j}" for j in range(nz)], z_coeffs)
     for pt in fin_zr():
         tr.write_point(pt)
 
     _timer.mark("perm_commit")
     y = tr.challenge()
+
+    if debug is not None:
+        debug["terms"] = _debug_terms_on_domain(
+            pk, dom, adv, inst_vals, gamma, beta_l, beta_p, gamma_p,
+            [z_lag[:, j] for j in range(nz)],
+            dict(h_all=h_all if nlk else None,
+                 g_vals=g_vals if nlk else None,
+                 m_vals=m_vals if nlk else None,
+                 phi=phi_vals if nlk else None,
+                 table_vals=table_vals, dpow=dpow, wpow=wpow,
+                 fixed_vals_const=dstate["fixed_vals_const"]))
+        del adv
 
     # ---- quotient on the extended coset ------------------------------------
     cpow = dstate["cpow"]
@@ -1106,6 +1135,8 @@ def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
     yield  # quotient term batches enqueued
     _timer.mark("quot_terms")
     h_coeffs_full = _j_quot_finish(dom_ext, acc, dstate["zh_inv"], cpow_inv)
+    if debug is not None:
+        dbg_tail = h_coeffs_full[:, PROTO.NUM_QUOT_CHUNKS * n:]
     hq = h_coeffs_full[:, : PROTO.NUM_QUOT_CHUNKS * n].reshape(
         L, PROTO.NUM_QUOT_CHUNKS, n)
     del h_coeffs_full
@@ -1162,6 +1193,10 @@ def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
     del pending_evs
     for name, rot in sched:
         tr.write_scalar(evals[(name, rot)])
+    if debug is not None:
+        debug.update(_debug_at_x(shape, k, n, dbg_tail, inst_ints, evals,
+                                 gamma, beta_l, beta_p, gamma_p, y, x, delta))
+        del dbg_tail
     _timer.mark("evals")
 
     # ---- SHPLONK multiopen: polys grouped by their full rotation SET
@@ -1245,3 +1280,143 @@ def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
 
     _timer.mark("multiopen")
     return tr.proof_bytes(), _timer
+
+
+# ---------------------------------------------------------------------------
+# debug=: where a proof that the verifier rejects went wrong
+# ---------------------------------------------------------------------------
+
+def _debug_terms_on_domain(pk, dom, adv, inst_vals, gamma, beta_l, beta_p,
+                           gamma_p, z_lagrange, env) -> dict:
+    """Evaluate every constraint term on H from Lagrange values and report
+    the rows with a nonzero residual (localises a quotient that does not
+    divide). Prints one line per failing term, as the JAX package does;
+    returns {term name: (rows,) int64 array of its failing rows}."""
+    asm = pk.asm
+    shape = pk.vk.shape
+    n, u, P = asm.n, asm.u, asm.num_perm_cols
+    nlk = asm.num_lk_cols
+    lk_base = asm.num_advice - nlk
+    dev = adv.device
+    fixed_lag = N.ntt(dom, pk.fixed_coeffs)
+    fidx = {nm: i for i, nm in enumerate(PROTO.fixed_poly_names(shape))}
+
+    def fl(nm):
+        return fixed_lag[:, fidx[nm]]
+
+    def roll1(v, r=1):
+        return torch.roll(v, -r, dims=-1)
+
+    def full(m):
+        return m[:, None].expand(L, n)
+
+    gamma_m, beta_lm, beta_pm, gamma_pm, one_m = (
+        _enc_mont_scalar(v, dev) for v in (gamma, beta_l, beta_p, gamma_p, 1))
+    dpow, wpow = env["dpow"], env["wpow"]
+    out = {}
+
+    def report(name, res):
+        rows = np.nonzero(F.to_numpy((res != 0).any(dim=0)))[0]
+        if len(rows):
+            print(f"DEBUG term {name}: {len(rows)} bad rows, first {rows[:6]}")
+            out[name] = rows
+
+    for kind, arg in PROTO.build_terms(shape):
+        if kind == "gate":
+            a = adv[:, arg]
+            t = F.add(FR, a, F.mont_mul(FR, roll1(a, 1), roll1(a, 2)))
+            t = F.sub(FR, t, roll1(a, 3))
+            report(f"gate{arg}", F.mont_mul(FR, fl(f"sel_{arg}"), t))
+        elif kind == "challenge":
+            a = adv[:, arg]
+            report(f"chal{arg}", F.mont_mul(
+                FR, fl(f"qgamma_{arg}"), F.sub(FR, a, full(gamma_m))))
+        elif kind == "lookup_h":
+            g = arg
+            cols = range(g * LOOKUP_GROUP, min((g + 1) * LOOKUP_GROUP, nlk))
+            facs = [F.add(FR, adv[:, lk_base + i], full(beta_lm))
+                    for i in cols]
+            prod = facs[0]
+            for f2 in facs[1:]:
+                prod = F.mont_mul(FR, prod, f2)
+            lhs = F.mont_mul(FR, env["h_all"][:, g], prod)
+            rhs = _zeros(lhs.shape, dev)
+            for j in range(len(facs)):
+                pr = None
+                for kk in range(len(facs)):
+                    if kk != j:
+                        pr = (facs[kk] if pr is None
+                              else F.mont_mul(FR, pr, facs[kk]))
+                rhs = F.add(FR, rhs, full(one_m) if pr is None else pr)
+            report(f"lookup_h{g}", F.mont_mul(
+                FR, fl("q_act"), F.sub(FR, lhs, rhs)))
+        elif kind == "lookup_table":
+            t0 = F.sub(FR, F.mont_mul(
+                FR, env["g_vals"],
+                F.add(FR, env["table_vals"], full(beta_lm))),
+                env["m_vals"])
+            report("lookup_table", F.mont_mul(FR, fl("q_act"), t0))
+        elif kind == "lookup_acc":
+            phi = env["phi"]
+            hsum = _zeros((L, n), dev)
+            for g in range(PROTO.num_lookup_groups(shape)):
+                hsum = F.add(FR, hsum, env["h_all"][:, g])
+            t0 = F.add(FR, F.sub(FR, F.sub(FR, roll1(phi), phi), hsum),
+                       env["g_vals"])
+            report("lookup_acc", F.mont_mul(FR, fl("q_act"), t0))
+        elif kind == "lookup_first":
+            report("lookup_first", F.mont_mul(FR, fl("q_first"), env["phi"]))
+        elif kind == "lookup_last":
+            report("lookup_last", F.mont_mul(FR, fl("q_last"), env["phi"]))
+        elif kind == "perm_first":
+            report("perm_first", F.mont_mul(
+                FR, fl("q_first"), F.sub(FR, z_lagrange[0], full(one_m))))
+        elif kind == "perm_chunk":
+            j = arg
+            lhs, rhs = roll1(z_lagrange[j]), z_lagrange[j]
+            for i in range(j * PERM_CHUNK, min((j + 1) * PERM_CHUNK, P)):
+                if i < asm.num_advice:
+                    v = adv[:, i]
+                elif i == asm.num_advice:
+                    v = env["fixed_vals_const"]
+                else:
+                    v = inst_vals
+                bsig = F.mont_mul(FR, full(beta_pm), pk.sigma_vals[:, i])
+                lhs = F.mont_mul(FR, lhs, F.add(
+                    FR, v, F.add(FR, bsig, full(gamma_pm))))
+                idv = F.mont_mul(FR, full(dpow[:, i]), wpow)
+                bid = F.mont_mul(FR, full(beta_pm), idv)
+                rhs = F.mont_mul(FR, rhs, F.add(
+                    FR, v, F.add(FR, bid, full(gamma_pm))))
+            report(f"perm_chunk{j}", F.mont_mul(
+                FR, fl("q_act"), F.sub(FR, lhs, rhs)))
+        elif kind == "perm_chain":
+            j = arg
+            t0 = F.sub(FR, z_lagrange[j], roll1(z_lagrange[j - 1], u))
+            report(f"perm_chain{j}", F.mont_mul(FR, fl("q_first"), t0))
+        elif kind == "perm_last":
+            nz = PROTO.num_perm_chunks(shape)
+            report("perm_last", F.mont_mul(
+                FR, fl("q_last"), F.sub(FR, z_lagrange[nz - 1], full(one_m))))
+    return out
+
+
+def _debug_at_x(shape, k, n, tail, inst_ints, evals, gamma, beta_l, beta_p,
+                gamma_p, y, x, delta) -> dict:
+    """The two checks after the quotient: the nonzero limbs of the
+    quotient's coefficients past NUM_QUOT_CHUNKS*n (zero when the folded
+    constraints vanish on H), and the verifier's fold of the evaluations at
+    x against Z_H(x)h(x). Prints both lines as the JAX package does."""
+    nz_limbs = int((tail != 0).sum())
+    total = int(np.prod(tail.shape))
+    print("DEBUG h tail nonzero limbs:", nz_limbs, "/", total)
+    inst_x = VF.instance_eval(inst_ints, x, k)
+    acc_x = VF.fold_constraints(shape, evals, gamma, beta_l, beta_p, gamma_p,
+                                y, x, inst_x, delta)
+    zh_x = (pow(x, n, FR.p) - 1) % FR.p
+    h_x = 0
+    for i in range(PROTO.NUM_QUOT_CHUNKS):
+        h_x = (h_x + pow(x, n * i, FR.p) * evals[(f"quot{i}", 0)]) % FR.p
+    identity = acc_x == zh_x * h_x % FR.p
+    print("DEBUG identity F(x) == Z_H(x)h(x):", identity)
+    return {"h_tail_nonzero_limbs": (nz_limbs, total), "identity": identity}

@@ -34,6 +34,14 @@ class SRS:
     def n(self):
         return 1 << self.k
 
+    def g1_points(self, count=None) -> list:
+        """The first `count` (all when None) monomial G1 points as host
+        affine points (for verifier-side small MSMs)."""
+        X, Y = self.g1
+        count = self.n if count is None else count
+        Z = F.const(F.FQ, F.FQ.to_mont_int(1), (count,), X.device)
+        return C.decode_points((X[:, :count], Y[:, :count], Z))
+
 
 def path_for(k: int, params_dir: str = "params") -> str:
     return os.path.join(params_dir, f"kzg_bn254_{k}.npz")

@@ -220,3 +220,12 @@ def mock_check(layout: Layout, values, gamma, verbose: bool = True) -> dict:
                 print(f"mock_check: {len(v)} violations in {k}: {v[:10]}")
     return out
 
+
+
+def assert_satisfied(layout: Layout, values, gamma):
+    """mock_check; raises AssertionError naming each violated category
+    (gate context, copies, constants, challenge, lookup) with its count."""
+    res = mock_check(layout, values, gamma)
+    bad = {k: len(v) for k, v in res.items() if len(v)}
+    if bad:
+        raise AssertionError(f"constraint violations: {bad}")

@@ -53,3 +53,45 @@ def proving_key_arrays(path: str, device="cuda") -> tuple[int, dict]:
             raise ValueError(f"{path}: {name} has shape {tuple(t.shape)}, "
                              f"expected (20, cols, {n})")
     return k, out
+
+
+def layout_arrays(layout) -> list:
+    """A trace layout (``trace/compile.Layout`` of either package) as a
+    list of unsigned integer numpy arrays in a fixed order: sizes, gate
+    starts, copies, constants (values as (20, C) standard-form limbs),
+    challenge cells, instance cells and cell bit bounds. Two layouts are
+    equal exactly when these lists are, so a digest of them
+    (``cli.trace_digest``) stands for the whole layout."""
+    out = [np.asarray(layout.sizes, dtype=np.int64)]
+    out += [np.asarray(layout.gate_starts[c], dtype=np.int64)
+            for c in sorted(layout.gate_starts)]
+    for a, ia, b, ib in layout.copies:
+        out += [np.asarray([a, b], dtype=np.int64),
+                np.asarray(ia, dtype=np.int64), np.asarray(ib, dtype=np.int64)]
+    for c in sorted(layout.const_idx):
+        out += [np.asarray(layout.const_idx[c], dtype=np.int64),
+                F.encode_ints_np([int(v) for v in layout.const_vals[c]])]
+    out.append(np.asarray(layout.challenge_idx, dtype=np.int64))
+    for c, idx in layout.instance_refs:
+        out += [np.asarray([c], dtype=np.int64),
+                np.asarray(idx, dtype=np.int64)]
+    out += [np.asarray(layout.cell_bits[c], dtype=np.int64)
+            for c in sorted(layout.cell_bits)]
+    return out
+
+
+def fixed_arrays(asm) -> list:
+    """The fixed columns of a keygen's host assembly
+    (``backend/assembly.Assembly`` of either package), in vk order, as
+    unsigned integer numpy arrays: for each column its name (UTF-8 bytes),
+    the rows where it is nonzero and the values there as (20, m)
+    standard-form limbs. Two assemblies have the same fixed columns
+    exactly when these lists are equal; ``cli.trace_digest`` of them
+    stands for every fixed column."""
+    out = []
+    for name, col in asm.fixed_column_values():
+        col = np.asarray(col, dtype=object)
+        rows = np.flatnonzero(col != 0)
+        out += [np.frombuffer(name.encode(), dtype=np.uint8),
+                rows.astype(np.int64), F.encode_ints_np(col[rows])]
+    return out
