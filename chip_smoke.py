@@ -33,8 +33,11 @@ Phases, each printed with its time; any failure exits non-zero:
    scripts/bench_batch.py); one warm-up ``prover.prove``, then one timed
    ``prove(..., rng_seed=b"s0")``;
 10. batch: ``backend/batch.prove_batch`` of the eight inputs with seeds
-   s0..s7: proof 0 equals the serial bytes, the eight proofs are
-   distinct, and the port's verify accepts each;
+   s0..s7 (one batched circuit run per phase): proof 0 equals the serial
+   bytes, the eight proofs are distinct, and the port's verify accepts
+   each; then ``trace/compile.run_circuit_batch`` of the eight at random
+   challenges against their per-proof runs (every context, the instance,
+   the layout);
 11. stream: ``parallel/pipeline.prove_stream`` of the first four inputs,
    depth 2, same seeds: equal to the batch's first four proofs. Phases
    9-11 print the time per proof, the table-MSM calls per proof, the
@@ -58,19 +61,35 @@ Phases, each printed with its time; any failure exits non-zero:
    verify must accept the proof and reject it with one byte flipped and
    with one public value changed; the stage times, the peak device memory
    of keygen and of the timed prove and its table-MSM calls are printed;
-14. timing: each kernel's wrapper again, at the shape and field of its
-   largest launch in phases 5-13 (bfly, which no module calls, at
+14. nolag: ``SRS.load(13)`` (no Lagrange points), an in-process keygen
+   of bfv_empty.in (every commitment ``keygen.commit_columns``, the scan
+   MSM; vk digest equal to the JAX package's) and ``PV.prove`` of bfv.in
+   with seed s0, byte-identical to phase 9's serial table-path proof;
+   verify accepts it and rejects two tampered forms with the native core
+   and with its python fallback forced; ``commit_columns_lagrange``
+   against ``commit_columns(iNTT)`` on ten columns at n=8192; each
+   ``msm.WIDTH_TIERS`` tier against ``msm_host`` on 256 SRS points, then
+   timed on 8 columns at n=8192; ``tree_reduce_affine`` against
+   ``tree_reduce_points_halves`` on lanes with infinity, P=Q and P=-Q,
+   then both timed at the table MSM's largest tree, (1, 53 * 32768);
+15. witgen64: ``generate_input(seed=100+i)`` for 64 inputs, the batched
+   phase-0 and full circuit runs of all 64 (wall time, peak memory),
+   proofs 0 and 63 against their per-proof runs, and eight per-proof run
+   pairs timed and scaled to 64;
+16. timing: each kernel's wrapper again, at the shape and field of its
+   largest launch in phases 5-15 (bfly, which no module calls, at
    bfly_dif's), on fresh random inputs, held to its plain version there
    too (exact equality), then timed with its plain version; plus one NTT
    of the same lanes through ``ntt.ntt``, whose time per stage shows what
    the stage's copies around ``bfly_dif`` cost;
-15. the ``matmul``, ``proof_paths``, ``k15`` and ``kernels`` JSON lines:
-   per kernel, its launches in phases 5-7, in the batch, the stream, the
-   keccak phase and the k=15 phase (each must be > 0 for mont_mul, add,
-   sub and bfly_dif, except bfly_dif in the keccak phase, whose circuit
-   runs no NTT; bfly's launches are those of its check in phase 3), its
-   largest mismatch over phases 3 and 14, its time, its plain version's
-   time and its bound.
+17. the ``matmul``, ``proof_paths``, ``k15``, ``nolag``, ``witgen64`` and
+   ``kernels`` JSON lines: per kernel, its launches in phases 5-7, in the
+   batch, the stream, the keccak phase, the k=15 phase, the no-Lagrange
+   keygen and prove and the batched witness of 64 (each must be > 0 for
+   mont_mul, add, sub and bfly_dif, except bfly_dif in the keccak phase,
+   whose circuit runs no NTT; bfly's launches are those of its check in
+   phase 3), its largest mismatch over phases 3 and 16, its time, its
+   plain version's time and its bound.
 
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 ``python3 chip_smoke.py --profile`` also prints, for mock, keygen, prove,
@@ -140,6 +159,13 @@ MATMUL_SHAPES = {
     "k15 shplonk fold": ((), 1, 64, 32768),
 }
 MATMUL_REPLACES = "zkfhe_tpu/ops/mxu_field.py:125"
+# the batched witness phase: proofs in one circuit run, and the per-proof
+# run pairs (phase 0 + full) timed beside it and scaled to WITGEN_B
+WITGEN_B = 64
+WITGEN_SERIAL = 8
+# the table MSM's largest reduction tree over every path, (columns, lanes):
+# k=15's full-width calls, one column of W=53 windows (c=5) x 32768 rows
+TREE_SHAPE = (1, 53 * 32768)
 SOURCE = "zkfhe_tpu_torch/csrc/field_kernels.cu"
 
 # a failed check is recorded and the run goes on, so that one run reports
@@ -196,7 +222,8 @@ def build_kernels(K, NAT):
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         futs = [pool.submit(K.build), pool.submit(NAT.get_lib)]
         path = futs[0].result()
-        futs[1].result()
+        if futs[1].result() is None:
+            FAILURES.append("the native verifier core did not build")
     log = K.BUILD_LOG.get("output", "(cached build)")
     for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
@@ -485,6 +512,7 @@ def check_batch_and_stream(K, MX, dev, data_dir, params_dir):
           f"({time.time() - t0:.3f}s)")
     if not all(ok):
         FAILURES.append(f"verify rejected batch proofs {ok}")
+    check_batched_traces(circuit, inputs, dev)
     streamed, r_s = run_path(
         K, MX, MSM, f"prove_stream (depth 2, {STREAM_B} proofs)",
         lambda: PP.prove_stream(pk, srs, circuit, inputs[:STREAM_B],
@@ -511,7 +539,271 @@ def check_batch_and_stream(K, MX, dev, data_dir, params_dir):
             torch.cuda.synchronize()
             wall = time.time() - t0
         profile_report(prof, wall, f"prove_batch (B={BATCH_B}), second run")
-    return per
+    return per, serial
+
+
+def check_batched_traces(circuit, inputs, dev):
+    """The batch's witness (one circuit run with a proof axis, as
+    prove_batch runs it) against the stacked per-proof runs, every context
+    and the instance, at random challenges; the layouts must be equal."""
+    from zkfhe_tpu_torch.backend import batch as BT
+    from zkfhe_tpu_torch.ops import field as F
+    from zkfhe_tpu_torch.trace import compile as TC
+    t0 = time.time()
+    rng = np.random.default_rng(8)
+    gammas = random_canonical(rng, (20, len(inputs)), dev)
+    bld, values, inst = TC.run_circuit_batch(circuit, inputs, gammas)
+    layout = TC.snapshot_layout(bld)
+    torch.cuda.synchronize()
+    t_b = time.time() - t0
+    bad = []
+    for b, inp in enumerate(inputs):
+        b1, v1, i1 = TC.run_circuit(circuit, inp, gammas[:, b].contiguous())
+        if not (all(torch.equal(v[:, b], w) for v, w in zip(values, v1))
+                and torch.equal(inst[:, b], i1)):
+            bad.append(b)
+        if b == 0 and not TC.layouts_equal(layout, TC.snapshot_layout(b1)):
+            FAILURES.append("the batched circuit run's layout differs from "
+                            "a single run's")
+    if bad:
+        FAILURES.append(f"batched traces differ from the per-proof runs of "
+                        f"proofs {bad}")
+    print(f"[smoke] batched traces (B={len(inputs)}, {len(values)} contexts "
+          f"and the instance) against the per-proof runs: "
+          f"{'equal' if not bad else f'DIFFER at {bad}'}; batched run "
+          f"{t_b:.3f}s, with the {len(inputs)} per-proof runs "
+          f"{time.time() - t0:.3f}s")
+    del values, inst
+
+
+# the widths of the JAX test tests/test_backend.py::
+# test_commit_lagrange_matches_coefficient (rows [0, u); rows [u, n) full)
+COMMIT_WIDTHS = (8, 29, 40, 52, 13, 29, 40, 52, 254, 254)
+TIER_POINTS = 256  # points of the per-tier scan-MSM check against msm_host
+
+
+def random_ints(rng, count, bits, p):
+    return [int.from_bytes(rng.bytes(32), "little") % (1 << bits) % p
+            for _ in range(count)]
+
+
+def check_nolag(K, MX, MSM, dev, data_dir, params_dir, serial, ref):
+    """Phase 14: keygen and prove at k=13 from SRS.load (no Lagrange
+    points: every commitment is keygen.commit_columns, the scan MSM), the
+    proof equal to the table path's serial proof with the same seed,
+    verified with the native core and with the python fallback; then
+    commit_columns_lagrange against commit_columns(iNTT), every scan tier
+    against msm_host, the affine tree against the Jacobian one on edge
+    lanes, and both trees timed at the table MSM's largest tree. Returns
+    the keygen's and the prove's measurements and the JSON line."""
+    from zkfhe_tpu_torch import native as NAT
+    from zkfhe_tpu_torch.backend import keygen as KG
+    from zkfhe_tpu_torch.backend import prover as PV
+    from zkfhe_tpu_torch.backend import srs as SRS
+    from zkfhe_tpu_torch.backend import verifier as VF
+    from zkfhe_tpu_torch.models import bfv
+    from zkfhe_tpu_torch.ops import curve as C
+    from zkfhe_tpu_torch.ops import field as F
+    from zkfhe_tpu_torch.ops import ntt as N
+    from zkfhe_tpu_torch.trace import compile as TC
+    line = {}
+    params = bfv.BfvParams()
+    circuit = bfv.make_bfv_circuit(params)
+    empty, full = (bfv.CircuitInput.from_json(os.path.join(
+        data_dir, "bfv", name)).to_arrays(params, dev)
+        for name in ("bfv_empty.in", "bfv.in"))
+    srs = SRS.load(13, params_dir, dev)
+    assert srs.g1_lag is None
+    stages = {}
+    pk, r_kg = run_path(K, MX, MSM, "no-Lagrange keygen (bfv_empty.in, "
+                        "k=13)", lambda: KG.keygen(circuit, empty, 13, srs,
+                                                   stages=stages))
+    digest = KG.vk_digest(pk.vk).hex()
+    print(f"[smoke]   keygen stages: {stages}; vk digest {digest}")
+    if digest != ref["keygen"]["vk_digest"]:
+        FAILURES.append(f"no-Lagrange keygen vk digest {digest} != JAX "
+                        f"{ref['keygen']['vk_digest']}")
+    if r_kg["msm"]["msm_tab"]:
+        FAILURES.append("no-Lagrange keygen ran a table MSM")
+    PV.prove(pk, srs, circuit, full, rng_seed=b"warm")  # pk's cosets
+    proof, r_pv = run_path(K, MX, MSM, "no-Lagrange prove (bfv.in, s0)",
+                           lambda: PV.prove(pk, srs, circuit, full,
+                                            rng_seed=b"s0"))
+    r_pv["stages"] = dict(PV.LAST_STAGES)
+    print(f"[smoke]   prove stages: {r_pv['stages']}")
+    if proof != serial:
+        FAILURES.append("the no-Lagrange proof differs from the table "
+                        "path's serial proof (s0)")
+    if r_pv["msm"]["msm_tab"]:
+        FAILURES.append("the no-Lagrange prove ran a table MSM")
+    inst = F.array_to_ints(TC.make_witgen_p0(circuit)(full)[1])
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    cases = (("valid", proof, inst, True),
+             ("one proof byte flipped", bytes(bad), inst, False),
+             ("one public value changed", proof,
+              [inst[0] + 1] + inst[1:], False))
+    real_get_lib = NAT.get_lib
+    for route in ("native", "host"):
+        if route == "host":  # the fallback, as without g++
+            NAT.get_lib = lambda: None
+        try:
+            for label, pf, pub, want in cases:
+                t0 = time.time()
+                ok = VF.verify(pk.vk, pf, pub)
+                dt = time.time() - t0
+                if label == "valid":
+                    line[f"verify_{route}_s"] = dt
+                print(f"[smoke]   verify ({route}) {label}: {ok} "
+                      f"({dt:.3f}s)")
+                if ok is not want:
+                    FAILURES.append(f"no-Lagrange proof: {route} verify "
+                                    f"gave {ok} for {label}")
+        finally:
+            NAT.get_lib = real_get_lib
+    line.update(keygen_s=r_kg["wall_s"], prove_s=r_pv["wall_s"],
+                keygen_stages=stages, prove_stages=r_pv["stages"],
+                scan_calls_keygen=r_kg["msm"]["msm_scan"],
+                scan_calls_prove=r_pv["msm"]["msm_scan"],
+                peak_gb_keygen=r_kg["peak_gb"], peak_gb_prove=r_pv["peak_gb"])
+
+    # commit_columns_lagrange == commit_columns(iNTT) at n = 8192
+    rng = np.random.default_rng(14)
+    n, u = 1 << 13, (1 << 13) - 10
+    lag = SRS.load_or_generate_lagrange(13, params_dir, dev)
+    cols = [random_ints(rng, u, w, F.FR.p) + random_ints(rng, n - u, 256,
+                                                         F.FR.p)
+            for w in COMMIT_WIDTHS]
+    evals = F.to_mont(F.FR, F.tensor(np.stack(
+        [F.encode_ints_np(c) for c in cols], axis=1), dev))
+    t0 = time.time()
+    want = KG.commit_columns(srs, N.intt(N.Domain.new(13), evals))
+    t_coeff = time.time() - t0
+    t0 = time.time()
+    got = KG.commit_columns_lagrange(lag, evals, u)
+    t_lag = time.time() - t0
+    print(f"[smoke]   commit_columns_lagrange of {len(cols)} columns at "
+          f"n={n} ({t_lag:.3f}s) against commit_columns(iNTT) "
+          f"({t_coeff:.3f}s): {'equal' if got == want else 'DIFFER'}")
+    if got != want:
+        FAILURES.append("commit_columns_lagrange differs from "
+                        "commit_columns(iNTT) at n=8192")
+    line.update(commit_lagrange_s=t_lag, commit_coeff_s=t_coeff)
+
+    # every scan tier against msm_host, then timed at the commit shape
+    pts = srs.g1_points(TIER_POINTS)
+    PX, PY = srs.g1[0][:, :TIER_POINTS], srs.g1[1][:, :TIER_POINTS]
+    line["tier_ms"] = {}
+    for bits, R in MSM.WIDTH_TIERS:
+        rows = [random_ints(rng, TIER_POINTS, min(bits, 254), F.FR.p)
+                for _ in range(2)]
+        rows[0][0] = min((1 << bits) - 1, F.FR.p - 1)
+        sc = F.tensor(np.stack([F.encode_ints_np(r) for r in rows],
+                               axis=1), dev)
+        got = C.decode_points(MSM.msm((PX, PY), sc, max_bits=bits))
+        ok = got == [MSM.msm_host(pts, r) for r in rows]
+        if not ok:
+            FAILURES.append(f"scan MSM tier {bits} differs from msm_host")
+        # timed on KG.MSM_BATCH random columns of n scalars below 2^bits
+        sc = random_canonical(rng, (20, KG.MSM_BATCH, n), dev)
+        sc[-(-bits // F.LIMB_BITS):] = 0
+        ms = time_ms(lambda: MSM.msm(srs.g1, sc, max_bits=bits), reps=2)
+        line["tier_ms"][bits] = ms
+        print(f"[smoke]   scan MSM tier {bits} (R={R}) on {TIER_POINTS} "
+              f"points: {'equal to' if ok else 'DIFFERS from'} msm_host; "
+              f"{ms:.3f} ms per call of {KG.MSM_BATCH} columns at n={n}")
+
+    # the trees: edge lanes, then timed at the table MSM's largest tree
+    g = [C.G1_GEN.mul(int(v) or 1) for v in random_ints(rng, 4, 254,
+                                                        F.FR.p)]
+    inf = C.AffinePoint()
+    rows = [[g[0], g[1], g[2], g[3], g[0], g[1].neg(), inf],
+            [inf] * 7,
+            [g[2], g[2], g[2].neg(), g[0], g[2], g[1], g[1]]]
+    enc = [C.encode_points(r, device=dev) for r in rows]
+    P = tuple(torch.stack([e[i] for e in enc], dim=1) for i in range(3))
+    sums = []
+    for r in rows:
+        acc = inf
+        for pt in r:
+            acc = acc.add(pt)
+        sums.append(acc)
+    a = C.decode_points(C.tree_reduce_affine(P))
+    h = C.decode_points(C.tree_reduce_points_halves(P, first_mixed=True))
+    if not a == h == sums:
+        FAILURES.append("tree_reduce_affine differs from "
+                        "tree_reduce_points_halves on edge lanes")
+    lanes = TREE_SHAPE[0] * TREE_SHAPE[1]
+    X = random_canonical(rng, (20,) + TREE_SHAPE, dev)
+    Y = random_canonical(rng, (20,) + TREE_SHAPE, dev)
+    Z = F.const(F.FQ, F.FQ.to_mont_int(1), TREE_SHAPE, dev).contiguous()
+    t_aff = time_ms(lambda: C.tree_reduce_affine((X, Y, Z)), reps=2)
+    t_half = time_ms(lambda: C.tree_reduce_points_halves(
+        (X, Y, Z), first_mixed=True), reps=2)
+    del X, Y, Z
+    print(f"[smoke]   trees on edge lanes: affine {a == sums}, halves "
+          f"{h == sums}; at {TREE_SHAPE} ({lanes} lanes): affine "
+          f"{t_aff:.3f} ms, Jacobian halves {t_half:.3f} ms")
+    line.update(tree_shape=list(TREE_SHAPE), tree_affine_ms=t_aff,
+                tree_halves_ms=t_half)
+    return r_kg, r_pv, line
+
+
+def check_witgen64(K, MX, MSM, dev, data_dir):
+    """Phase 15: the batched phase-0 and full circuit runs of 64 inputs
+    (bfv.in-sized, generate_input(seed=100+i)); proofs 0 and 63 against
+    their per-proof runs, and the time of WITGEN_SERIAL per-proof run pairs,
+    scaled to 64. Returns the path's measurements and the JSON line."""
+    from zkfhe_tpu_torch.models import bfv
+    from zkfhe_tpu_torch.scripts import witgen_batch as WB
+    from zkfhe_tpu_torch.trace import compile as TC
+    from zkfhe_tpu_torch.trace.builder import CTX_P0
+    t0 = time.time()
+    inputs = WB.make_inputs(WITGEN_B, dev)
+    t_in = time.time() - t0
+    circuit = bfv.make_bfv_circuit(bfv.BfvParams())
+    gammas = random_canonical(np.random.default_rng(64), (20, WITGEN_B), dev)
+
+    def batched():
+        (p0, inst0), (values, inst) = WB.run_batched(circuit, inputs, gammas)
+        return ({b: (p0[:, b].clone(), inst0[:, b].clone(),
+                     [v[:, b].clone() for v in values], inst[:, b].clone())
+                 for b in (0, WITGEN_B - 1)},
+                sum(v.numel() for v in values) * 4 / 1e9)
+    (kept, trace_gb), res = run_path(
+        K, MX, MSM, f"witgen64 (batched phase-0 and full runs, "
+        f"B={WITGEN_B})", batched)
+    serial = [0, WITGEN_B - 1] + list(range(1, WITGEN_SERIAL - 1))
+    t0 = time.time()
+    for b in serial:
+        _, v0, i0 = TC.run_circuit(circuit, inputs[b], torch.zeros(
+            20, dtype=torch.int32, device=dev))
+        _, v1, i1 = TC.run_circuit(circuit, inputs[b],
+                                   gammas[:, b].contiguous())
+        torch.cuda.synchronize()
+        if b in kept:
+            p0, inst0, vals, inst = kept[b]
+            if not (torch.equal(p0, v0[CTX_P0]) and torch.equal(inst0, i0)
+                    and all(torch.equal(x, y) for x, y in zip(vals, v1))
+                    and torch.equal(inst, i1)):
+                FAILURES.append(f"witgen64: proof {b}'s batched trace "
+                                f"differs from its per-proof runs")
+        del v0, v1
+    t_serial = time.time() - t0
+    per_proof = t_serial / len(serial)
+    line = dict(B=WITGEN_B, inputs_s=t_in, batched_s=res["wall_s"],
+                peak_gb=res["peak_gb"], trace_gb=trace_gb,
+                per_proof_runs=len(serial), per_proof_pair_s=per_proof,
+                per_proof_64_s=per_proof * WITGEN_B,
+                per_proof_64_scaled=len(serial) < WITGEN_B,
+                speedup=per_proof * WITGEN_B / res["wall_s"])
+    print(f"[smoke]   witgen64: batched {res['wall_s']:.3f}s for "
+          f"{WITGEN_B} proofs (peak {res['peak_gb']:.3f} GB, traces "
+          f"{trace_gb:.3f} GB); {len(serial)} per-proof run pairs "
+          f"{t_serial:.3f}s, scaled to {WITGEN_B}: "
+          f"{line['per_proof_64_s']:.3f}s ({line['speedup']:.2f}x); "
+          f"inputs {t_in:.3f}s")
+    return res, line
 
 
 def check_keccak(K, MX, MSM, cli, dev):
@@ -730,7 +1022,7 @@ def main():
     print(f"[smoke] mock: {mock}")
 
     tmp = tempfile.mkdtemp(prefix="zkfhe_smoke_")
-    paths = r_kc = k15 = None
+    paths = r_kc = k15 = nolag = w64 = None
     try:
         os.makedirs(os.path.join(tmp, "data", "bfv"))
         for name in ("bfv_empty.in", "bfv.in"):
@@ -771,15 +1063,25 @@ def main():
                         os.path.join(tmp, "data"),
                         os.path.join(ROOT, "params"))
         t0 = time.time()
-        paths = attempt("batch and stream", check_batch_and_stream, K, MX,
-                        dev, os.path.join(tmp, "data"),
-                        os.path.join(ROOT, "params"))
+        paths, serial = attempt(
+            "batch and stream", check_batch_and_stream, K, MX, dev,
+            os.path.join(tmp, "data"), os.path.join(ROOT, "params")) or (
+                None, None)
         print(f"[smoke] serial, batch and stream phases: "
               f"{time.time() - t0:.3f}s")
         r_kc = attempt("keccak", check_keccak, K, MX, MSM, cli, dev)
         t0 = time.time()
         k15 = attempt("k=15", check_k15, K, MX, MSM, cli, dev, tmp)
         print(f"[smoke] k=15 phase: {time.time() - t0:.3f}s")
+        t0 = time.time()
+        nolag = attempt("no-Lagrange", check_nolag, K, MX, MSM, dev,
+                        os.path.join(tmp, "data"),
+                        os.path.join(ROOT, "params"), serial, ref)
+        print(f"[smoke] no-Lagrange phase: {time.time() - t0:.3f}s")
+        t0 = time.time()
+        w64 = attempt("witgen64", check_witgen64, K, MX, MSM, dev,
+                      os.path.join(tmp, "data"))
+        print(f"[smoke] witgen64 phase: {time.time() - t0:.3f}s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -801,18 +1103,27 @@ def main():
     (c_k15m, l_k15m), r_k15, k15_result = k15 or ((zero, {}), None, None)
     c_k15 = {k: c_k15m[k] + (r_k15["counts"][k] if r_k15 else 0)
              for k in zero}
+    r_nkg, r_npv, nolag_line = nolag or (None, None, None)
+    c_nolag = {k: sum(r["counts"][k] for r in (r_nkg, r_npv) if r)
+               for k in zero}
+    r_w64, w64_line = w64 or (None, None)
+    c_w64 = r_w64["counts"] if r_w64 else zero
     on_path = [k for k in KERNELS if k != "bfly"]
     for ph, c, want in (("prove_batch", c_b, on_path + ["mat_mul_mont"]),
                         ("prove_stream", c_s, on_path + ["mat_mul_mont"]),
                         ("keccak", c_kc, ["mont_mul", "add", "sub"]),
-                        ("k=15", c_k15, on_path + ["mat_mul_mont"])):
+                        ("k=15", c_k15, on_path + ["mat_mul_mont"]),
+                        ("no-Lagrange", c_nolag, on_path + ["mat_mul_mont"]),
+                        ("witgen64", c_w64, on_path)):
         for k in want:
             if c[k] == 0:
                 FAILURES.append(f"kernel {k} never launched in {ph}")
     # each kernel's largest launch over every driven path: the CLI verbs,
-    # the serial, batch and stream proofs, keccak and k=15
+    # the serial, batch and stream proofs, keccak, k=15, the no-Lagrange
+    # keygen and prove and the batched witness of 64
     l_paths = [r["largest"] for r, _ in paths.values()] if paths else []
-    l_paths += [r["largest"] for r in (r_kc, r_k15) if r] + [l_k15m]
+    l_paths += [r["largest"] for r in (r_kc, r_k15, r_nkg, r_npv, r_w64)
+                if r] + [l_k15m]
     largest = {}
     for k in KERNELS:
         seen = [v for v in [l.get(k) for l in [l_mock, l_kg, l_pv] + l_paths]
@@ -841,6 +1152,8 @@ def main():
             **({"stages": r["stages"]} if "stages" in r else {}))
         for name, (r, nb) in paths.items()}}))
     print(json.dumps({"k15": k15_result}))
+    print(json.dumps({"nolag": nolag_line}))
+    print(json.dumps({"witgen64": dict(w64_line, device=smi)}))
     line = {"kernels": [dict(
         name=k, route="cuda", source=SOURCE,
         replaces=KERNELS[k]["replaces"], launches=launches[k],
@@ -849,6 +1162,7 @@ def main():
             "launches_prove": c_pv[k]}),
         launches_batch=c_b[k], launches_stream=c_s[k],
         launches_keccak=c_kc[k], launches_k15=c_k15[k],
+        launches_nolag=c_nolag[k], launches_witgen64=c_w64[k],
         max_abs_err=errs[k], library_ms=None, **timing[k])
         for k in KERNELS]}
     print(json.dumps(line))

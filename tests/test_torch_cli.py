@@ -32,6 +32,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "zkfhe_tpu_torch.parallel.pipeline",
             "zkfhe_tpu_torch.models.keccak",
             "zkfhe_tpu_torch.scripts.bench_k15",
+            "zkfhe_tpu_torch.scripts.witgen_batch",
             "zkfhe_tpu_torch.utils.profiling"]
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)

@@ -189,3 +189,81 @@ def test_srs_g1_points_matches_jax():
     assert [(p.x, p.y, p.infinity) for p in ts.g1_points(5)] == \
         [(p.x, p.y, p.infinity) for p in js.g1_points(5)]
     assert len(ts.g1_points()) == 1 << 10
+
+
+# ---------------------------------------------------------------------------
+# The host fallback: without the native core, verify runs the python-int
+# Pippenger (ops/msm.msm_host_pippenger) and pairing, as the JAX package's
+# ---------------------------------------------------------------------------
+
+def _no_native(monkeypatch):
+    """The native core reported unavailable, as get_lib does after a failed
+    g++ build or load."""
+    monkeypatch.setattr(TNAT, "get_lib", lambda: None)
+    assert TNAT.msm([TC.G1_GEN], [1]) is None
+    assert TNAT.pairing_check([(TC.G1_GEN, None)]) is None
+
+
+def _k13():
+    """(port vk, JAX vk, proof, instance) of the card's k=13 proof."""
+    vk_path = os.path.join(ROOT, "data", "bfv.vk.npz")
+    d = np.load(os.path.join(FIXTURES, "torch_proof_k13.npz"))
+    return (TKG.load_vk(vk_path), JKG.load_vk(vk_path), bytes(d["proof"]),
+            [int(v) for v in d["instance"]])
+
+
+@pytest.mark.parametrize("case", ["valid"] + sorted(TAMPER))
+def test_verify_host_fallback_k9_same_verdicts(k9, monkeypatch, case):
+    """The JAX k=9 proof and each tampered form: the fallback's verdict is
+    the native path's and the JAX verifier's (True only when valid)."""
+    vk, proof, inst = k9 if case == "valid" else TAMPER[case](*k9)
+    native = TVF.verify(vk, proof, inst)
+    assert native is (case == "valid")
+    if case != "wrong_vk":  # the JAX verifier on the fixture's own vk
+        fx = np.load(os.path.join(FIXTURES, "torch_prover_k9.npz"))
+        jvk = _generator().load_vk_bytes(fx["vk"], JKG.load_vk)
+        assert JVF.verify(jvk, proof, inst) is native
+    _no_native(monkeypatch)
+    assert TVF.verify(vk, proof, inst) is native
+
+
+@pytest.mark.parametrize("case", ["valid", "flipped_byte", "wrong_instance"])
+def test_verify_host_fallback_k13_same_verdicts(monkeypatch, case):
+    """The card's k=13 proof (and two tampered forms) through the fallback:
+    the native and the JAX verdicts."""
+    vk, jvk, proof, inst = _k13()
+    if case != "valid":
+        _, proof, inst = TAMPER[case](vk, proof, inst)
+    native = TVF.verify(vk, proof, inst)
+    assert native is (case == "valid")
+    assert JVF.verify(jvk, proof, inst) is native
+    _no_native(monkeypatch)
+    assert TVF.verify(vk, proof, inst) is native
+
+
+def test_native_build_failure_reports_unavailable(monkeypatch, capsys):
+    """A failed build (no g++, say) makes get_lib print one line to stderr
+    and return None, once; msm and pairing_check then return None."""
+    def broken():
+        raise RuntimeError("native build failed (1): g++ not found")
+    monkeypatch.setattr(TNAT, "_build", broken)
+    monkeypatch.setattr(TNAT, "_lib", None)
+    monkeypatch.setattr(TNAT, "_tried", False)
+    assert TNAT.get_lib() is None
+    err = capsys.readouterr().err
+    assert "native core unavailable" in err and err.count("\n") == 1
+    assert TNAT.get_lib() is None and capsys.readouterr().err == ""
+    assert TNAT.msm([TC.G1_GEN], [3]) is None
+
+
+def test_verify_uses_native_core_when_present(k9, monkeypatch):
+    """With the core present, verify never reaches the python versions."""
+    assert TNAT.get_lib() is not None
+
+    def refuse(*a, **kw):
+        raise AssertionError("python fallback used with the core present")
+    monkeypatch.setattr(TM, "msm_host_pippenger", refuse)
+    monkeypatch.setattr(TPR, "pairing_check", refuse)
+    vk, proof, inst = k9
+    assert TVF.verify(vk, proof, inst)
+    assert not TVF.verify(*TAMPER["wrong_instance"](vk, proof, inst))

@@ -14,8 +14,10 @@ points) are ``(L, B)`` tensors, uploaded once per stage for all proofs.
 Every commitment folds the proof axis into the column axis, ``(L, B*K,
 n)``, so the B proofs' columns go through the same table-MSM calls.
 
-Witness generation runs per proof (B eager circuit runs, stacked); a
-circuit run with a proof axis is not ported. Fiat-Shamir stays per proof
+Witness generation is one circuit run with a proof axis for all B proofs
+(trace/compile.run_circuit with an (L, B) challenge): one pruned phase-0
+run and one full run, as the JAX package's ``jax.vmap`` of the circuit
+run (``_batched_witgen_p0``, ``_batched_witgen``). Fiat-Shamir stays per proof
 (one transcript each), and each proof draws its blinding in the serial
 order, so with the same draws the proof bytes equal serial
 ``prover.prove``'s.
@@ -30,7 +32,7 @@ from ..ops import mxu_field as MX
 from ..ops import ntt as N
 from ..ops.field import FR
 from ..trace.builder import CTX_LK, CTX_P0, LOOKUP_BITS
-from ..trace.compile import make_witgen, make_witgen_p0
+from ..trace.compile import run_circuit, stack_inputs
 from ..utils.profiling import StageTimer
 from . import protocol as PROTO
 from . import prover as PV
@@ -40,6 +42,29 @@ from .srs import SRS
 from .transcript import Transcript
 
 L = F.NLIMBS
+
+
+def _batched_witgen(circuit_fn):
+    """(stacked inputs (L, B, ...), gammas (L, B) standard form) ->
+    (values, instance): values[c] is (L, B, cells), instance (L, B, m).
+    One circuit run for all B proofs."""
+    def witgen_b(batched_inputs, gammas):
+        _, values, instance = run_circuit(circuit_fn, batched_inputs, gammas)
+        return values, instance
+    return witgen_b
+
+
+def _batched_witgen_p0(circuit_fn):
+    """Phase-0 form: stacked inputs -> (values[CTX_P0], instance) at the
+    zero challenge (the whole circuit runs eagerly; the other contexts are
+    dropped, as trace/compile.make_witgen_p0 does)."""
+    def witgen_p0_b(batched_inputs):
+        first = next(iter(batched_inputs.values()))
+        gammas = F.zero(first.shape[1:2], first.device)
+        values, instance = _batched_witgen(circuit_fn)(batched_inputs,
+                                                       gammas)
+        return values[CTX_P0], instance
+    return witgen_p0_b
 
 
 def _j_lookup_counts(nlk_u, n, lk_rows):
@@ -163,6 +188,11 @@ def prove_batch(pk: ProvingKey, srs: SRS, circuit_fn, inputs_list,
     B = len(inputs_list)
     if B < 1:
         raise ValueError("prove_batch needs at least one input")
+    if srs.g1_lag is None:
+        raise ValueError("prove_batch needs an SRS with Lagrange-basis "
+                         "points (the fixed-base table committer); "
+                         "SRS.load(k) has none, load_or_generate(k) adds "
+                         "them")
     asm = pk.asm
     k, n, u = asm.k, asm.n, asm.u
     dev = pk.fixed_coeffs.device
@@ -218,12 +248,10 @@ def prove_batch(pk: ProvingKey, srs: SRS, circuit_fn, inputs_list,
             for pt in pts:
                 tr.write_point(pt)
 
-    # ---- phase 0: one circuit run per proof, stacked ----------------------
-    wg0 = make_witgen_p0(circuit_fn)
-    outs = [wg0(inp) for inp in inputs_list]
-    values0_p0 = torch.stack([v for v, _ in outs], dim=1)  # (L, B, cells)
-    instances = torch.stack([i for _, i in outs], dim=1)  # (L, B, m)
-    del outs
+    # ---- phase 0: one circuit run for all proofs ---------------------------
+    batched_inputs = stack_inputs(inputs_list)
+    # (L, B, cells), (L, B, m)
+    values0_p0, instances = _batched_witgen_p0(circuit_fn)(batched_inputs)
     inst_np = F.to_numpy(instances)  # ONE transfer for all proofs
     for i, tr in enumerate(trs):
         for v in F.decode(FR, inst_np[:, i]):
@@ -244,13 +272,9 @@ def prove_batch(pk: ProvingKey, srs: SRS, circuit_fn, inputs_list,
     gammas_m = enc_b(gammas)
 
     # ---- full witness with the real challenges ----------------------------
-    witgen = make_witgen(circuit_fn)
-    outs = [witgen(inp, gammas_std[:, i].contiguous())
-            for i, inp in enumerate(inputs_list)]
-    values1 = tuple(torch.stack([v[c] for v, _ in outs], dim=1)
-                    for c in range(len(outs[0][0])))
-    instances1 = torch.stack([i for _, i in outs], dim=1)
-    del outs
+    values1, instances1 = _batched_witgen(circuit_fn)(batched_inputs,
+                                                      gammas_std)
+    del batched_inputs
     # the instance and every phase-0 advice cell were bound (transcript,
     # phase-0 commitment) from the first run
     if not torch.equal(instances, instances1):

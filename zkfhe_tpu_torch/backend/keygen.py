@@ -1,8 +1,11 @@
 """Key generation: fixed/permutation polynomials, commitments, artifacts
-(port of zkfhe_tpu/backend/keygen.py, default table-MSM path).
+(port of zkfhe_tpu/backend/keygen.py).
 
 All polynomial math (iNTT to coefficient form, commitment MSMs, sigma
-values) runs on the device of the SRS tensors.
+values) runs on the device of the SRS tensors. Commitments take the
+fixed-base table MSM over the Lagrange-basis points (``Committer``) when
+the SRS has them, and the scan Pippenger over the monomial points
+(``commit_columns``) when it has not (``SRS.load(k)``).
 """
 from __future__ import annotations
 
@@ -47,8 +50,33 @@ def find_delta(field: F.Field, min_order: int = 4096) -> int:
     raise AssertionError("no delta found")
 
 
+MSM_BATCH = 8  # columns per scan-MSM call (bounds the bucket replicas)
+
+
+def commit_columns(srs: SRS.SRS, coeffs_mont, batch: int = MSM_BATCH):
+    """Commit (L, K, n) Montgomery coefficient-form columns -> K affine
+    points: one scan-Pippenger MSM per group of `batch` columns over the
+    monomial SRS points; a short last group is padded with zero columns
+    to `batch`."""
+    L_, K, n = coeffs_mont.shape
+    if K == 0:
+        return []
+    std = F.from_mont(FR, coeffs_mont)
+    PX, PY = srs.g1[0][:, :n], srs.g1[1][:, :n]
+    pts = []
+    for s in range(0, K, batch):
+        sc = std[:, s:s + batch, :]
+        real = sc.shape[1]
+        if real < batch:
+            sc = torch.cat([sc, F.zero((batch - real, n), sc.device)],
+                           dim=1)
+        pts.extend(C.decode_points(M.msm((PX, PY), sc))[:real])
+    return pts
+
+
 # Column capacities of the shared blind-tail MSM
 TAIL_KS = (8, 64, 256)
+TAIL_R = 8  # replicas of the blind-tail scan MSM (n - u points)
 
 # Table-MSM batch sizes (columns per launch) at n=8192; narrower for
 # full-width columns, whose gathers are W(256)/W(tier) times larger
@@ -196,9 +224,53 @@ class Committer:
                                   sync=sync)
 
 
-def make_committer(srs: "SRS.SRS", n: int, u: int) -> Committer:
-    """Committer for the table-MSM path (the only path ported)."""
+def make_committer(srs: "SRS.SRS", n: int, u: int) -> "Committer | None":
+    """Committer for the table-MSM path, or None when the SRS has no
+    Lagrange-basis points (callers then commit with commit_columns)."""
+    if srs.g1_lag is None:
+        return None
     return Committer(srs, n, u)
+
+
+def commit_columns_lagrange(lag_pts, evals_mont, u: int,
+                            batch: int = MSM_BATCH):
+    """Commit (L, K, n) Montgomery evaluation-form columns -> K affine
+    points over the Lagrange-basis points: the same group elements as
+    commit_columns(iNTT(...)) (f(tau) = sum_j f(w^j) L_j(tau)), with the
+    raw evaluations as scalars. Columns are width-sorted into groups and
+    each group runs a width-tiered scan (ops/msm.WIDTH_TIERS). Rows [u, n),
+    the full-width blinding, are committed for all columns in one shared
+    scan of n - u points (TAIL_KS capacities, TAIL_R replicas) and added on
+    the host."""
+    L_, K, n = evals_mont.shape
+    if K == 0:
+        return []
+    dev = evals_mont.device
+    tail_k = next((c for c in TAIL_KS if c >= K), -(-K // 64) * 64)
+    std = F.from_mont(FR, evals_mont)
+    PX, PY = lag_pts
+    main = std[:, :, :u]
+    widths = M.column_max_bits(main)
+    order = np.argsort(np.asarray(widths), kind="stable")
+
+    out = [None] * K
+    for s in range(0, K, batch):
+        idx = [int(i) for i in order[s:s + batch]]
+        sc = main[:, torch.as_tensor(idx, dtype=torch.int64, device=dev)]
+        real = sc.shape[1]
+        if real < batch:
+            sc = torch.cat([sc, F.zero((batch - real, u), dev)], dim=1)
+        mb = max(widths[i] for i in idx)
+        res = M.msm((PX[:, :u], PY[:, :u]), sc, max_bits=mb)
+        for pos, pt in enumerate(C.decode_points(res)[:real]):
+            out[idx[pos]] = pt
+
+    # the shared blind-tail MSM (full-width scalars, n - u points)
+    tail = torch.cat([std[:, :, u:], F.zero((tail_k - K, n - u), dev)],
+                     dim=1)
+    res = M.msm((PX[:, u:], PY[:, u:]), tail, R=TAIL_R)
+    tail_pts = C.decode_points(res)[:K]
+    return [a.add(b) for a, b in zip(out, tail_pts)]
 
 
 @dataclasses.dataclass
@@ -312,11 +384,17 @@ def keygen(circuit_fn, example_inputs, k: int, srs: SRS.SRS,
 
     # ---- commitments -----------------------------------------------------
     committer = make_committer(srs, n, asm.u)
-    committer.table  # noqa: B018  (built here so its time is its own)
-    stage("table")
-    fixed_commits = committer.commit_values(fixed_vals)
-    stage("fixed commits")
-    sigma_commits = committer.commit_values(sigma_vals, split_tail=False)
+    if committer is not None:
+        committer.table  # noqa: B018  (built here so its time is its own)
+        stage("table")
+        fixed_commits = committer.commit_values(fixed_vals)
+        stage("fixed commits")
+        sigma_commits = committer.commit_values(sigma_vals,
+                                                split_tail=False)
+    else:
+        fixed_commits = commit_columns(srs, fixed_coeffs)
+        stage("fixed commits")
+        sigma_commits = commit_columns(srs, sigma_coeffs)
     stage("sigma commits")
 
     vk = VerifyingKey(

@@ -42,7 +42,8 @@ from ..utils.profiling import StageTimer
 from . import protocol as PROTO
 from . import verifier as VF
 from .assembly import EXT_FACTOR, LOOKUP_GROUP, PERM_CHUNK
-from .keygen import ProvingKey, make_committer, vk_digest
+from .keygen import (ProvingKey, commit_columns, make_committer,
+                     vk_digest)
 from .srs import SRS
 from .transcript import Transcript
 
@@ -727,19 +728,33 @@ def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
 
     committer = make_committer(srs, n, u)
 
+    # without Lagrange-basis points (committer None) every commitment is
+    # commit_columns over the coefficients: an iNTT for evaluation-form
+    # columns, then the scan MSM, run eagerly
     def commit_evals_async(evals, col_bits=None):
         """Advice commitment (width-tiered main rows + shared blind tail);
         col_bits = STATIC per-column bounds (Assembly.col_bits), so the
         tier choice never reads witness magnitudes."""
-        return committer.commit_values(evals, col_bits=col_bits, sync=False)
+        if committer is not None:
+            return committer.commit_values(evals, col_bits=col_bits,
+                                           sync=False)
+        pts = commit_columns(srs, N.intt(dom, evals))
+        return lambda: pts
 
     def commit_vals_async(vals):
         """Full-width evaluation-form columns (lookup helpers, z polys)."""
-        return committer.commit_values(vals, split_tail=False, sync=False)
+        if committer is not None:
+            return committer.commit_values(vals, split_tail=False,
+                                           sync=False)
+        pts = commit_columns(srs, N.intt(dom, vals))
+        return lambda: pts
 
     def commit_coeffs_async(coeffs):
         """Full-width coefficient-form columns (quotient, H, W)."""
-        return committer.commit_coeffs(coeffs, dom, sync=False)
+        if committer is not None:
+            return committer.commit_coeffs(coeffs, dom, sync=False)
+        pts = commit_columns(srs, coeffs)
+        return lambda: pts
 
     fin_p0 = (commit_evals_async(adv_p0, asm.col_bits[:p0]) if p0
               else (lambda: []))

@@ -5,12 +5,15 @@ check.
 Everything runs on the host with python ints. The two heavy steps, the
 combination of the opened commitments with their SHPLONK weights and the
 pairing check, run in the native core (``native/zkfhe_native.cc``, loaded
-by ``zkfhe_tpu_torch.native``); if it cannot be built, verify raises.
+by ``zkfhe_tpu_torch.native``); when it cannot be built or loaded they run
+in python ints (``ops/msm.msm_host_pippenger``, ``pairing.pairing_check``),
+with the same verdicts.
 """
 from __future__ import annotations
 
 from .. import native as NAT
 from ..ops import curve as C
+from ..ops import msm as M
 from ..ops import ntt as N
 from ..ops.field import FR
 from . import pairing as PR
@@ -23,13 +26,21 @@ P_MOD = FR.p
 
 
 def _combine_points(points, scalars):
-    """sum_i scalars[i] * points[i]: the native C++ Pippenger."""
-    return NAT.msm(points, scalars)
+    """sum_i scalars[i] * points[i]: the native C++ Pippenger, or the host
+    Pippenger when the native core is unavailable."""
+    out = NAT.msm(points, scalars)
+    if out is not None:
+        return out
+    return M.msm_host_pippenger(points, scalars)
 
 
 def _pairing_check(pairs) -> bool:
-    """prod e(P_i, Q_i) == 1: the native multi-Miller pairing check."""
-    return NAT.pairing_check(pairs)
+    """prod e(P_i, Q_i) == 1: the native multi-Miller pairing check, or
+    the python pairing when the native core is unavailable."""
+    out = NAT.pairing_check(pairs)
+    if out is not None:
+        return out
+    return PR.pairing_check(pairs)
 
 
 def instance_eval(instance: list, x: int, k: int) -> int:

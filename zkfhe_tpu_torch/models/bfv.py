@@ -144,21 +144,22 @@ def generate_input(params: BfvParams, seed: int = 0) -> CircuitInput:
 
 def poly_mul_exact(a_desc, b_desc):
     """Exact integer product of two degree-descending polys whose product
-    coefficients stay < p. NTT-based (O(n log n) on TPU)."""
-    la, lb = a_desc.shape[1], b_desc.shape[1]
+    coefficients stay < p. NTT-based, along the last axis: (L, *batch, len)
+    operands give (L, *batch, la + lb - 1)."""
+    la, lb = a_desc.shape[-1], b_desc.shape[-1]
     out_len = la + lb - 1
     k = max(out_len - 1, 1).bit_length()
     dom = N.Domain.new(k)
     n = dom.n
 
     def prep(x, ln):
-        asc = torch.flip(x, [1])
-        pad = F.zero((n - ln,), x.device)
-        return F.to_mont(FR, torch.cat([asc, pad], dim=1))
+        asc = torch.flip(x, [-1])
+        pad = F.zero(x.shape[1:-1] + (n - ln,), x.device)
+        return F.to_mont(FR, torch.cat([asc, pad], dim=-1))
 
     prod = N.poly_mul(dom, prep(a_desc, la), prep(b_desc, lb))
-    prod = F.from_mont(FR, prod)[:, :out_len]
-    return torch.flip(prod, [1])  # back to descending
+    prod = F.from_mont(FR, prod)[..., :out_len]
+    return torch.flip(prod, [-1])  # back to descending
 
 
 def reduce_coeffs_mod(vals, modulus: int, num_bits: int):
@@ -175,25 +176,30 @@ def divide_by_cyclo_device(d_desc, n: int, q: int):
         quotient[k]  = d[k]                    (k = 0..n-2)
         remainder[0] = d[n-1]
         remainder[j] = (d[n-1+j] - d[j-1]) mod q   (j = 1..n-1)
-    Returns (quotient padded to len n+1, remainder padded to len 2n+1)."""
+    Returns (quotient padded to len n+1, remainder padded to len 2n+1),
+    along the last axis."""
     dev = d_desc.device
-    q_desc = torch.cat([F.zero((2,), dev), d_desc[:, : n - 1]], dim=1)
+    bt = d_desc.shape[1:-1]
+    q_desc = torch.cat([F.zero(bt + (2,), dev), d_desc[..., : n - 1]],
+                       dim=-1)
 
-    shifted = torch.cat([F.zero((1,), dev), d_desc[:, : n - 1]], dim=1)
-    low = d_desc[:, n - 1:]
+    shifted = torch.cat([F.zero(bt + (1,), dev), d_desc[..., : n - 1]],
+                        dim=-1)
+    low = d_desc[..., n - 1:]
     diff, borrow = F._sub_limbs(low, shifted)
     q_arr = F.const_int(q, diff.shape[1:], dev)
     withq, _ = F._carry_chain(diff + q_arr)
     r_core = torch.where((borrow != 0).unsqueeze(0), withq, diff)
-    r_desc = torch.cat([F.zero((n + 1,), dev), r_core], dim=1)
+    r_desc = torch.cat([F.zero(bt + (n + 1,), dev), r_core], dim=-1)
     return q_desc, r_desc
 
 
 def mul_by_cyclo_device(q_desc, n: int):
-    """q * (x^n + 1) for a degree-descending q of length n+1 -> len 2n+1."""
-    z = F.zero((n,), q_desc.device)
-    hi = torch.cat([q_desc, z], dim=1)
-    lo = torch.cat([z, q_desc], dim=1)
+    """q * (x^n + 1) for a degree-descending q of length n+1 -> len 2n+1
+    (last axis)."""
+    z = F.zero(q_desc.shape[1:-1] + (n,), q_desc.device)
+    hi = torch.cat([q_desc, z], dim=-1)
+    lo = torch.cat([z, q_desc], dim=-1)
     out, _ = F._carry_chain(hi + lo)
     return out
 

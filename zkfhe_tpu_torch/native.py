@@ -4,8 +4,12 @@ zkfhe_tpu/native/__init__.py).
 ``native/zkfhe_native.cc`` (a top-level source of the repository, shared
 with the JAX package) holds a BN254 G1 Pippenger MSM and the optimal-ate
 pairing check. This loader builds it with ``g++ -O3`` into ``build/`` at
-first use, keyed by a hash of the source, and loads it. There is no
-fallback: if the build or a call fails, the caller gets the exception.
+first use, keyed by a hash of the source, and loads it. If the build or
+the load fails (no ``g++`` on the host, say), ``get_lib`` prints one line
+to stderr and returns None, and ``msm`` and ``pairing_check`` return None:
+the verifier then runs its python-int versions
+(``ops/msm.msm_host_pippenger``, ``backend/pairing.pairing_check``), as
+the JAX package's does. A failed call of a loaded library still raises.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import sys
 import threading
 
 from .ops.curve import AffinePoint
@@ -23,6 +28,7 @@ SRC = os.path.join(_ROOT, "native", "zkfhe_native.cc")
 BUILD_DIR = os.path.join(_ROOT, "build")
 
 _lib = None
+_tried = False
 _lock = threading.Lock()
 
 
@@ -43,33 +49,47 @@ def _build() -> str:
     return path
 
 
+def _load():
+    lib = ctypes.CDLL(_build())
+    lib.zk_init.argtypes = [ctypes.c_char_p]
+    lib.zk_init.restype = ctypes.c_int
+    lib.zk_msm.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
+                           ctypes.c_char_p, ctypes.c_uint64,
+                           ctypes.c_char_p]
+    lib.zk_msm.restype = ctypes.c_int
+    lib.zk_pairing_check.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
+                                     ctypes.c_char_p, ctypes.c_char_p,
+                                     ctypes.c_uint64]
+    lib.zk_pairing_check.restype = ctypes.c_int
+    rc = lib.zk_init(int(BN254_FQ).to_bytes(32, "little"))
+    if rc != 0:
+        raise RuntimeError(f"zk_init failed rc={rc}")
+    return lib
+
+
 def get_lib():
-    """The loaded native library (built on first use)."""
-    global _lib
+    """The loaded native library (built on first use), or None when it
+    cannot be built or loaded; the first attempt's outcome is kept."""
+    global _lib, _tried
     with _lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(_build())
-        lib.zk_init.argtypes = [ctypes.c_char_p]
-        lib.zk_init.restype = ctypes.c_int
-        lib.zk_msm.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
-                               ctypes.c_char_p, ctypes.c_uint64,
-                               ctypes.c_char_p]
-        lib.zk_msm.restype = ctypes.c_int
-        lib.zk_pairing_check.argtypes = [ctypes.c_char_p, ctypes.c_char_p,
-                                         ctypes.c_char_p, ctypes.c_char_p,
-                                         ctypes.c_uint64]
-        lib.zk_pairing_check.restype = ctypes.c_int
-        rc = lib.zk_init(int(BN254_FQ).to_bytes(32, "little"))
-        if rc != 0:
-            raise RuntimeError(f"zk_init failed rc={rc}")
-        _lib = lib
-        return lib
+        if not _tried:
+            _tried = True
+            try:
+                _lib = _load()
+            except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+                # no g++, a failed compile or load: python versions take over
+                print(f"[zkfhe_tpu_torch] native core unavailable ({e}); "
+                      "using python fallbacks", file=sys.stderr)
+                _lib = None
+        return _lib
 
 
-def msm(points, scalars) -> AffinePoint:
-    """sum_i scalars[i] * points[i] over AffinePoint / int lists."""
+def msm(points, scalars) -> AffinePoint | None:
+    """sum_i scalars[i] * points[i] over AffinePoint / int lists, or None
+    when the native core is unavailable."""
     lib = get_lib()
+    if lib is None:
+        return None
     n = len(points)
     pts = bytearray(64 * n)
     infs = bytearray(n)
@@ -92,9 +112,12 @@ def msm(points, scalars) -> AffinePoint:
                        int.from_bytes(raw[32:64], "little"))
 
 
-def pairing_check(pairs) -> bool:
-    """prod e(P_i, Q_i) == 1 for [(AffinePoint, g2 tuple or None)]."""
+def pairing_check(pairs) -> bool | None:
+    """prod e(P_i, Q_i) == 1 for [(AffinePoint, g2 tuple or None)], or None
+    when the native core is unavailable."""
     lib = get_lib()
+    if lib is None:
+        return None
     k = len(pairs)
     g1 = bytearray(64 * k)
     g1inf = bytearray(k)

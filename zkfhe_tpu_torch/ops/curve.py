@@ -401,3 +401,87 @@ def tree_reduce_points_halves(P, first_mixed: bool = False):
             X, Y, Z = point_add(lo, hi)
     return X[..., 0], Y[..., 0], Z[..., 0]
 
+
+
+def _affine_add_level(X1, Y1, L1, X2, Y2, L2):
+    """One level of complete affine pairwise adds, batch-inverted.
+
+    Inputs: coordinate tensors (L, *batch) and boolean live masks
+    (*batch). Affine chord/tangent addition costs about 5 field products
+    per pair and a share of one batched inversion, and carries two
+    coordinates instead of three. Completeness (infinity lanes, P=Q
+    doubling, P=-Q) is handled with selects; y == 0 cannot occur on BN254
+    G1 (prime order, no 2-torsion), so the tangent denominator 2y is safe
+    for live lanes."""
+    f = FQ
+    both = L1 & L2
+    ex = F.eq(X1, X2)
+    ey = F.eq(Y1, Y2)
+    dbl = both & ex & ey
+    cancel = both & ex & ~ey  # P = -Q -> infinity
+    denom = F.select(dbl, F.double(f, Y1), F.sub(f, X2, X1))
+    # dead and cancelled lanes get denominator 1 so the batch inversion
+    # stays well defined
+    dead = ~both | cancel
+    one = F.to_mont(f, F.const(f, 1, X1.shape[1:], X1.device))
+    denom = F.select(dead, one, denom)
+    dinv = F.batch_inv(f, denom)
+    x1sq = F.mont_sqr(f, X1)
+    num = F.select(
+        dbl, F.add(f, F.double(f, x1sq), x1sq), F.sub(f, Y2, Y1))
+    lam = F.mont_mul(f, num, dinv)
+    X3 = F.sub(f, F.sub(f, F.mont_sqr(f, lam), X1), X2)
+    Y3 = F.sub(f, F.mont_mul(f, lam, F.sub(f, X1, X3)), Y1)
+    # pass-throughs: only one side live
+    X3 = F.select(both & ~cancel, X3, F.select(L1, X1, X2))
+    Y3 = F.select(both & ~cancel, Y3, F.select(L1, Y1, Y2))
+    live = (L1 | L2) & ~cancel
+    return X3, Y3, live
+
+
+def tree_reduce_affine(P, flags=None):
+    """Sum an affine point batch along the LAST axis by log2(n) levels of
+    batch-inverted affine adds (_affine_add_level). P = (X, Y, Z) with Z
+    the 0/1 flag encoding of infinity (as the table MSM's gather makes
+    it), or the live mask given as `flags`; returns a Jacobian (X, Y, Z)
+    with the last axis reduced away (Z is 0 or Montgomery 1). It gives
+    the same points as tree_reduce_points_halves(P)."""
+    X, Y, Z = P
+    live = ~F.is_zero(Z) if flags is None else flags
+    f = FQ
+    while X.shape[-1] > 1:
+        m = X.shape[-1]
+        if m % 2:
+            X = torch.nn.functional.pad(X, (0, 1))
+            Y = torch.nn.functional.pad(Y, (0, 1))
+            live = torch.nn.functional.pad(live, (0, 1))
+            m += 1
+        h = m // 2
+        X, Y, live = _affine_add_level(
+            X[..., :h], Y[..., :h], live[..., :h],
+            X[..., h:], Y[..., h:], live[..., h:])
+    one = F.to_mont(f, F.const(f, 1, X.shape[1:], X.device))
+    Zout = F.select(live, one, torch.zeros_like(X))
+    return X[..., 0], Y[..., 0], Zout[..., 0]
+
+
+def tree_reduce_points(P):
+    """Sum a Jacobian point batch along the LAST axis by a pairwise
+    (even, odd) tree of complete adds; the last axis is kept, of size 1."""
+    X, Y, Z = P
+    n = X.shape[-1]
+    while n > 1:
+        half = n // 2
+        even = (X[..., :2 * half:2], Y[..., :2 * half:2],
+                Z[..., :2 * half:2])
+        odd = (X[..., 1:2 * half:2], Y[..., 1:2 * half:2],
+               Z[..., 1:2 * half:2])
+        X2, Y2, Z2 = point_add(even, odd)
+        if n % 2:
+            X = torch.cat([X2, X[..., -1:]], dim=-1)
+            Y = torch.cat([Y2, Y[..., -1:]], dim=-1)
+            Z = torch.cat([Z2, Z[..., -1:]], dim=-1)
+        else:
+            X, Y, Z = X2, Y2, Z2
+        n = X.shape[-1]
+    return X, Y, Z

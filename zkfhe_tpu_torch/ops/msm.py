@@ -1,12 +1,23 @@
-"""Fixed-base table MSM over BN254 G1 (port of the table path of
-zkfhe_tpu/ops/msm.py).
+"""Multi-scalar multiplication over BN254 G1 (port of zkfhe_tpu/ops/msm.py).
 
-For every base point P_i, window w and multiple m in 1..2^(c-1) the table
-holds T[i, w, m] = m * 2^(c*w) * P_i in affine form. A commitment is the
-sum over all (window, point) lanes of one gathered entry (signed digit ->
-+-T[i, w, |d|]), reduced by a log-depth tree of complete Jacobian adds.
-All point math is ops/curve.py over Fq, so every field op of the build and
-the reduction rides the field kernels.
+Two device paths and two host references:
+
+* the scan Pippenger (``msm``): signed c-bit digits; a sequential bucket
+  scan over n/R steps in which every step adds R points at once into
+  (K, W, R) bucket lanes, conflict-free because in-step point r owns its
+  own bucket replica; then a replica merge, a running-sum bucket combine
+  and a window Horner. Commitments without Lagrange-basis points
+  (backend/keygen.commit_columns) run on it;
+* the fixed-base table MSM (``msm_tab``): for every base point P_i,
+  window w and multiple m in 1..2^(c-1) the table holds
+  T[i, w, m] = m * 2^(c*w) * P_i in affine form. A commitment is the sum
+  over all (window, point) lanes of one gathered entry (signed digit ->
+  +-T[i, w, |d|]), reduced by a log-depth tree of complete Jacobian adds;
+* ``msm_host`` (naive, for tests) and ``msm_host_pippenger`` (the
+  verifier's python-int fallback when the native core is unavailable).
+
+All device point math is ops/curve.py over Fq, so every field op rides
+the field kernels.
 
 The table rows are the JAX package's, bit for bit: point-major, row
 (i*W + w)*M + (m-1) holds [X limbs || Y limbs] with two 13-bit limbs
@@ -23,16 +34,22 @@ import torch
 
 from . import curve as C
 from . import field as F
-from .field import FQ
+from .field import FQ, FR
 
-# table-MSM calls (one gather + one reduction tree each) and the columns
-# they committed, padding included, since the last reset; on any device
-CALLS = {"msm_tab": 0, "msm_cols": 0}
+# MSM calls since the last reset, on any device: table-MSM calls (one
+# gather + one reduction tree each) and the columns they committed,
+# padding included; scan-MSM calls (one bucket scan, merge and Horner
+# each) and their columns
+CALLS = {"msm_tab": 0, "msm_cols": 0, "msm_scan": 0, "msm_scan_cols": 0}
 
 
 def reset_counts():
-    CALLS["msm_tab"] = 0
-    CALLS["msm_cols"] = 0
+    for key in CALLS:
+        CALLS[key] = 0
+
+
+DEFAULT_C = 4
+DEFAULT_R = 64
 
 
 def num_windows(c: int, max_bits: int = 256) -> int:
@@ -66,6 +83,137 @@ def signed_digits(scalars, c: int, max_bits: int = 256):
         out.append(torch.where(wrap, d - full, d))
         carry = wrap.to(torch.int32)
     return torch.stack(out)  # (W, *batch) int32
+
+
+def _msm_buckets(points, scalars, c: int, R: int, max_bits: int = 256):
+    """Bucket accumulation: n/R sequential steps, each one mixed add over
+    (K, W, R) lanes. points: affine (X, Y), each (L, n) with n % R == 0;
+    scalars: (L, K, n) standard form. Returns the buckets (3, L, K, W, R,
+    B); bucket 0 is the no-op lane of zero digits."""
+    PX, PY = points
+    L_, n = PX.shape
+    K = scalars.shape[1]
+    W = num_windows(c, max_bits)
+    B = (1 << (c - 1)) + 1
+    nsteps = n // R
+    dev = PX.device
+    lanes = K * W * R
+
+    digits = signed_digits(scalars, c, max_bits)  # (W, K, n)
+    # (W, K, nsteps, R) -> (nsteps, K, W, R)
+    dseq = digits.reshape(W, K, nsteps, R).permute(2, 1, 0, 3)
+    px_seq = PX.reshape(L_, nsteps, R)
+    py_seq = PY.reshape(L_, nsteps, R)
+
+    one = F.const(FQ, FQ.to_mont_int(1), (lanes * B,), dev)
+    bx = one.contiguous()
+    by = one.contiguous()
+    bz = F.zero((lanes * B,), dev)
+    # lane (k, w, r) owns buckets [lane*B, lane*B + B)
+    base = torch.arange(lanes, dtype=torch.int64, device=dev) * B
+    zero_lanes = F.zero((K, W, R), dev)
+    for s in range(nsteps):
+        d = dseq[s]  # (K, W, R)
+        idx = d.abs()
+        flat = (base + idx.reshape(-1).to(torch.int64)).expand(L_, lanes)
+        gx = bx.gather(1, flat).reshape(L_, K, W, R)
+        gy = by.gather(1, flat).reshape(L_, K, W, R)
+        gz = bz.gather(1, flat).reshape(L_, K, W, R)
+        qx = px_seq[:, s][:, None, None, :].expand(L_, K, W, R)
+        qy = py_seq[:, s][:, None, None, :].expand(L_, K, W, R)
+        qy = F.select(d < 0, F.sub(FQ, zero_lanes, qy), qy)
+        qnz = (idx != 0).to(F.DTYPE)[None].expand(L_, K, W, R)
+        nx, ny, nz = C.point_add_mixed((gx, gy, gz), (qx, qy, qnz))
+        bx.scatter_(1, flat, nx.reshape(L_, lanes))
+        by.scatter_(1, flat, ny.reshape(L_, lanes))
+        bz.scatter_(1, flat, nz.reshape(L_, lanes))
+    return torch.stack([t.reshape(L_, K, W, R, B) for t in (bx, by, bz)])
+
+
+def _msm_aggregate(buckets, c: int):
+    """(3, L, K, W, R, B) -> per-window totals T_w = sum_b b * bucket_b,
+    a stacked Jacobian (3, L, K, W): the replicas merge by log2 R levels
+    of pairwise complete adds, then a running sum over the buckets."""
+    bx, by, bz = buckets[0], buckets[1], buckets[2]
+    L_, K, W, R, B = bx.shape
+    P = (bx, by, bz)
+    r = R
+    while r > 1:
+        half = r // 2
+        even = tuple(t[:, :, :, :2 * half:2] for t in P)
+        odd = tuple(t[:, :, :, 1:2 * half:2] for t in P)
+        merged = C.point_add(even, odd)
+        if r % 2:
+            P = tuple(torch.cat([m, t[:, :, :, -1:]], dim=3)
+                      for m, t in zip(merged, P))
+        else:
+            P = merged
+        r = P[0].shape[3]
+    bx, by, bz = (t[:, :, :, 0] for t in P)  # (L, K, W, B)
+
+    run = acc = C.infinity_like((K, W), bx.device)
+    for b in range(B - 1):
+        sel = B - 1 - b
+        run = C.point_add(run, (bx[..., sel], by[..., sel], bz[..., sel]))
+        acc = C.point_add(acc, run)
+    return torch.stack(acc)  # (3, L, K, W)
+
+
+def _msm_horner(totals, c: int):
+    """Window combine from the top window: acc = 2^c * acc + T_w.
+    totals: (3, L, K, W) -> Jacobian (X, Y, Z), each (L, K)."""
+    L_, K, W = totals.shape[1:]
+    acc = C.infinity_like((K,), totals.device)
+    for w in range(W):
+        sel = W - 1 - w
+        for _ in range(c):
+            acc = C.point_double(acc)
+        acc = C.point_add(acc, tuple(t[..., sel] for t in totals))
+    return acc
+
+
+# Width tiers for small-scalar MSMs (scalar bound -> bucket-scan config),
+# the JAX package's: W*R is held about constant, so every tier runs the
+# same lane count per step while the step count falls with the width.
+WIDTH_TIERS = (  # (max_bits, R); W = num_windows(c=4, max_bits)
+    (52, 256),  # W=14: witness values (29b), div_mod quotients (41b)
+    (256, DEFAULT_R),  # W=65 full width
+)
+
+
+def tier_for(max_bits: int):
+    """Smallest tier covering scalars < 2^max_bits -> (tier_bits, R)."""
+    for b, r in WIDTH_TIERS:
+        if max_bits <= b:
+            return b, r
+    return 256, DEFAULT_R
+
+
+def msm(points, scalars, c: int = DEFAULT_C, R: int = DEFAULT_R,
+        max_bits: int = 256):
+    """Pippenger MSM: sum_i scalars[k, i] * points[i] for each k.
+
+    points: (X, Y) affine G1, each (L, n) Montgomery-form Fq.
+    scalars: (L, K, n) standard-form Fr limbs.
+    max_bits: caller-guaranteed bound on every scalar (column_max_bits
+    measures one); quantised to WIDTH_TIERS, which also picks R.
+    Returns Jacobian (X, Y, Z), each (L, K)."""
+    if max_bits < 256:
+        max_bits, R = tier_for(max_bits)
+    PX, PY = points
+    n = PX.shape[1]
+    R = min(R, n)
+    CALLS["msm_scan"] += 1
+    CALLS["msm_scan_cols"] += scalars.shape[1]
+    if n % R:
+        # dummy points with zero scalars: digit 0, a no-op in the scan
+        pad = R - n % R
+        PX = torch.cat([PX, F.zero((pad,), PX.device)], dim=1)
+        PY = torch.cat([PY, F.zero((pad,), PY.device)], dim=1)
+        scalars = torch.cat([scalars, F.zero(scalars.shape[1:2] + (pad,),
+                                             scalars.device)], dim=2)
+    buckets = _msm_buckets((PX, PY), scalars, c, R, max_bits)
+    return _msm_horner(_msm_aggregate(buckets, c), c)
 
 
 def column_max_bits(std) -> list:
@@ -229,3 +377,36 @@ def msm_host(points: list[C.AffinePoint], scalars: list[int]
     for p, s in zip(points, scalars):
         acc = acc.add(p.mul(s))
     return acc
+
+
+def msm_host_pippenger(points: list[C.AffinePoint], scalars: list[int],
+                       c: int = 8) -> C.AffinePoint:
+    """Host Pippenger over Jacobian python-int coordinates: the verifier's
+    MSM when the native core is unavailable (a few hundred points, no
+    device work)."""
+    p = FQ.p
+    live = [(pt, s % FR.p) for pt, s in zip(points, scalars)
+            if not pt.infinity and s % FR.p != 0]
+    if not live:
+        return C.AffinePoint()
+    W = (256 + c - 1) // c
+    acc = None
+    nb = 1 << c
+    for w in range(W - 1, -1, -1):
+        if acc is not None:
+            for _ in range(c):
+                acc = C.jac_double(acc, p)
+        buckets = [None] * nb
+        shift = c * w
+        for pt, s in live:
+            d = (s >> shift) & (nb - 1)
+            if d:
+                buckets[d] = C.jac_add_affine(buckets[d], pt, p)
+        run, tot = None, None
+        for b in range(nb - 1, 0, -1):
+            if buckets[b] is not None:
+                run = C.jac_add(run, buckets[b], p)
+            if run is not None:
+                tot = C.jac_add(tot, run, p)
+        acc = C.jac_add(acc, tot, p)
+    return C.jac_to_affine(acc, p)

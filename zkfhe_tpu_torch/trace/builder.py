@@ -2,7 +2,11 @@
 
 The JAX package's docstring follows; "traced" values are plain tensors
 here, and the layout is recorded by the same run that computes them
-(trace/compile.py).
+(trace/compile.py). One run may carry a proof axis: with
+``Builder(batch=(B,))`` every value is (L, B, m), the proof axis right
+after the limb axis and the cells on the last axis, so B proofs' circuit
+runs are one run whose static layout is that of a single proof (the JAX
+package gets the same from ``jax.vmap`` of the circuit run).
 
 Arithmetization IR (the halo2-base "GateChip/RangeChip/Context"
 equivalent, redesigned TPU-first — SURVEY.md §7 step 3).
@@ -71,7 +75,7 @@ class CellVec:
 
     ctx: int
     idx: np.ndarray  # (m,) int64, static
-    val: torch.Tensor  # (L, m) uint32, standard form, traced
+    val: torch.Tensor  # (L, *batch, m) int32, standard form, traced
     bits: int = MAX_BITS
 
     @property
@@ -79,12 +83,12 @@ class CellVec:
         return len(self.idx)
 
     def slice(self, lo, hi) -> "CellVec":
-        return CellVec(self.ctx, self.idx[lo:hi], self.val[:, lo:hi],
+        return CellVec(self.ctx, self.idx[lo:hi], self.val[..., lo:hi],
                        self.bits)
 
     def reverse(self) -> "CellVec":
         return CellVec(self.ctx, self.idx[::-1].copy(),
-                       torch.flip(self.val, [1]), self.bits)
+                       torch.flip(self.val, [-1]), self.bits)
 
 
 def concat_cells(parts: Sequence[CellVec]) -> CellVec:
@@ -93,7 +97,7 @@ def concat_cells(parts: Sequence[CellVec]) -> CellVec:
     return CellVec(
         ctx,
         np.concatenate([p.idx for p in parts]),
-        torch.cat([p.val for p in parts], dim=1),
+        torch.cat([p.val for p in parts], dim=-1),
         max(p.bits for p in parts),
     )
 
@@ -103,7 +107,7 @@ def _cbits(c: int) -> int:
 
 
 def _prefix_scan(op, x):
-    """Inclusive prefix combine along the last axis of an (L, m) array by
+    """Inclusive prefix combine along the last axis of an (L, ..., m) array by
     log-depth shift-and-combine (Hillis-Steele). `op` is associative, so
     the values equal those of a sequential scan."""
     s = 1
@@ -115,11 +119,15 @@ def _prefix_scan(op, x):
 
 
 class Builder:
-    """Collects trace values (traced) + layout (static) for one circuit."""
+    """Collects trace values (traced) + layout (static) for one circuit.
 
-    def __init__(self, field: F.Field = FR, device="cpu"):
+    batch: the proof axis (B,) of a batched run, () for one proof. The
+    layout never depends on it."""
+
+    def __init__(self, field: F.Field = FR, device="cpu", batch=()):
         self.field = field
         self.device = torch.device(device)
+        self.batch = tuple(batch)
         self.chunks = [[] for _ in range(NUM_CTX)]  # value chunks per ctx
         self.bits_chunks = [[] for _ in range(NUM_CTX)]  # static bit bounds
         self.sizes = [0] * NUM_CTX
@@ -129,14 +137,15 @@ class Builder:
         self.copies = []  # (ctx_a, idx_a, ctx_b, idx_b) np arrays
         self.constants = []  # (ctx, idx np.ndarray, value int)
         self.instance = []  # CellVecs exposed as public input, in order
-        self._gamma = None  # (L,) challenge value (traced), set per run
+        self._gamma = None  # (L, *batch) challenge value, set per run
 
     # -- raw allocation -----------------------------------------------------
     def _alloc(self, ctx: int, values: torch.Tensor,
                bits=MAX_BITS) -> np.ndarray:
-        """Append (L, m) values to a context; returns (m,) indices.
+        """Append (L, *batch, m) values to a context; returns (m,) indices.
         bits: scalar or (m,) static per-cell value bound."""
-        m = values.shape[1]
+        m = values.shape[-1]
+        values = values.expand((F.NLIMBS,) + self.batch + (m,))
         start = self.sizes[ctx]
         self.sizes[ctx] += m
         self.chunks[ctx].append(values)
@@ -149,8 +158,8 @@ class Builder:
 
     def finalize_values(self, ctx: int) -> torch.Tensor:
         if not self.chunks[ctx]:
-            return F.zero((0,), self.device)
-        return torch.cat(self.chunks[ctx], dim=1)
+            return F.zero(self.batch + (0,), self.device)
+        return torch.cat(self.chunks[ctx], dim=-1)
 
     def finalize_bits(self, ctx: int) -> np.ndarray:
         if not self.bits_chunks[ctx]:
@@ -160,7 +169,7 @@ class Builder:
     # -- witness/constant loading ------------------------------------------
     def load_witness(self, values: torch.Tensor, ctx: int = CTX_P0,
                      bits: int = MAX_BITS) -> CellVec:
-        """Load an (L, m) array of private witness values as fresh cells
+        """Load an (L, *batch, m) array of private witness values as fresh cells
         (reference: PolyChip::from_poly, src/poly_chip.rs:27-42). bits is
         the caller's static bound on every value (honest-witness claim:
         a wrong bound breaks completeness — the tiered commitment drops
@@ -172,8 +181,8 @@ class Builder:
         return CellVec(ctx, idx, values, bits)
 
     def load_constant(self, value: int, ctx: int = CTX_P1) -> CellVec:
-        arr = F.tensor(F.encode(self.field, [value % self.field.p]),
-                       self.device)
+        arr = self._per_proof(F.tensor(
+            F.encode(self.field, [value % self.field.p]), self.device))
         b = _cbits(value % self.field.p)
         if ctx == CTX_P1 and b > WIDE_THRESHOLD:
             ctx = CTX_WIDE
@@ -186,7 +195,8 @@ class Builder:
         entry of `values` (python ints). Grouped by distinct value so the
         layout records O(#distinct) constant entries, not O(m)."""
         vals = [int(v) % self.field.p for v in values]
-        arr = F.tensor(F.encode(self.field, vals), self.device)
+        arr = self._per_proof(F.tensor(F.encode(self.field, vals),
+                                       self.device))
         bits = np.asarray([_cbits(v) for v in vals], dtype=np.int16)
         b = int(bits.max()) if len(vals) else 1
         if ctx == CTX_P1 and b > WIDE_THRESHOLD:
@@ -219,10 +229,10 @@ class Builder:
         route to CTX_WIDE. Returns (ctx, (m,) region start indices)."""
         if ctx == CTX_P1 and max(bits) > WIDE_THRESHOLD:
             ctx = CTX_WIDE
-        m = a_val.shape[1]
+        m = a_val.shape[-1]
         vals = torch.stack(torch.broadcast_tensors(a_val, b_val, c_val, d_val),
-                           dim=-1)  # (L,m,4)
-        vals = vals.reshape(F.NLIMBS, 4 * m)
+                           dim=-1)  # (L, *batch, m, 4)
+        vals = vals.reshape(vals.shape[:-2] + (4 * m,))
         idx = self._alloc(ctx, vals,
                           np.tile(np.asarray(bits, dtype=np.int16), m))
         starts = idx[::4].copy()
@@ -238,10 +248,16 @@ class Builder:
         return CellVec(ctx, starts + slot, values, bits)
 
     def _const_arr(self, value: int, m: int) -> torch.Tensor:
-        return F.const(self.field, value, (m,), self.device)
+        return F.const(self.field, value, self.batch + (m,), self.device)
 
     def _zeros(self, m):
-        return F.zero((m,), self.device)
+        return F.zero(self.batch + (m,), self.device)
+
+    def _per_proof(self, arr):
+        """(L, m) values shared by every proof -> (L, *batch, m) (a view)."""
+        return arr.reshape((F.NLIMBS,) + (1,) * len(self.batch)
+                           + arr.shape[-1:]).expand(
+            (F.NLIMBS,) + self.batch + arr.shape[-1:])
 
     # value-level helpers (standard form)
     def vmul(self, x, y):
@@ -424,7 +440,7 @@ class Builder:
 
     # -- challenge (gamma) --------------------------------------------------
     def set_challenge(self, gamma_val: torch.Tensor):
-        """gamma_val: (L,) standard-form challenge for this run."""
+        """gamma_val: (L, *batch) standard-form challenge(s) for this run."""
         self._gamma = gamma_val
 
     def challenge_cell(self) -> CellVec:
@@ -432,7 +448,7 @@ class Builder:
         gate (q_gamma * (a - gamma) = 0). Replaces axiom's RlcChip gamma
         plumbing (src/poly_chip.rs:97-104) with an ordinary copyable cell."""
         assert self._gamma is not None, "challenge not set"
-        val = self._gamma[:, None]
+        val = self._gamma[..., None]
         idx = self._alloc(CTX_WIDE, val)
         self.challenge_cells.append(idx)
         return CellVec(CTX_WIDE, idx, val)
@@ -442,18 +458,18 @@ class Builder:
         """Cells [1, g, g^2, ..., g^(count-1)] with chained mul gates.
         Values via a log-depth prefix product."""
         assert base.m == 1
-        bmont = F.to_mont(self.field, base.val)  # (L,1)
+        bmont = F.to_mont(self.field, base.val)  # (L, *batch, 1)
         prefix = _prefix_scan(
             lambda x, y: F.mont_mul(self.field, x, y),
-            bmont.expand(F.NLIMBS, count - 1))
-        pow_vals = F.from_mont(self.field, prefix)  # (L, count-1): [g, g^2..]
+            bmont.expand(bmont.shape[:-1] + (count - 1,)))
+        pow_vals = F.from_mont(self.field, prefix)  # [g, g^2, ...]
         one = self._const_arr(1, 1)
-        allv = torch.cat([one, pow_vals], dim=1)  # (L, count)
+        allv = torch.cat([one, pow_vals], dim=-1)  # (L, *batch, count)
 
         # regions: [0, p_{i}, g, p_{i+1}] for i in 0..count-2
-        pv = allv[:, :-1]
-        nv = allv[:, 1:]
-        gv = base.val.expand(F.NLIMBS, count - 1)
+        pv = allv[..., :-1]
+        nv = allv[..., 1:]
+        gv = base.val.expand(base.val.shape[:-1] + (count - 1,))
         rctx, starts = self._region(
             self._zeros(count - 1), pv, gv, nv,
             copies=[], consts=[(0, 0)],
@@ -474,9 +490,9 @@ class Builder:
         acc_0 = x_0*y_0 ; acc_i = acc_{i-1} + x_i*y_i. Returns final acc.
         Accumulator witness values via log-depth modular prefix sums."""
         m = xs.m
-        terms = self.vmul(xs.val, ys.val)  # (L, m)
+        terms = self.vmul(xs.val, ys.val)  # (L, *batch, m)
         accv = _prefix_scan(lambda x, y: F.add(self.field, x, y), terms)
-        prev = torch.cat([self._zeros(1), accv[:, :-1]], dim=1)
+        prev = torch.cat([self._zeros(1), accv[..., :-1]], dim=-1)
         rctx, starts = self._region(
             prev, xs.val, ys.val, accv,
             copies=[(1, xs), (2, ys)], consts=[],
@@ -484,7 +500,7 @@ class Builder:
         self.constants.append((rctx, starts[:1], 0))
         # acc chaining: slot0 of region i+1 == slot3 of region i
         self.copies.append((rctx, starts[:-1] + 3, rctx, starts[1:]))
-        return CellVec(rctx, starts[-1:] + 3, accv[:, -1:])
+        return CellVec(rctx, starts[-1:] + 3, accv[..., -1:])
 
     def rlc_eval(self, cells: CellVec, gamma_powers: CellVec) -> CellVec:
         """Evaluate a degree-descending coefficient vector at gamma:

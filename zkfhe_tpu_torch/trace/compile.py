@@ -4,7 +4,9 @@ of zkfhe_tpu/trace/compile.py).
 One code path gives both layout and witness: `run_circuit` runs the
 circuit function and returns the builder (whose static layout
 `snapshot_layout` reads) with the trace values; `trace_layout` is the same
-run with the values dropped.
+run with the values dropped. `run_circuit_batch` runs B proofs' circuits
+as one run with a proof axis (trace/builder.py); its layout is a single
+run's (`layouts_equal`).
 
 `mock_check` is the MockProver equivalent: it evaluates every gate row,
 copy, constant, challenge pin and lookup bound on the trace arrays.
@@ -91,17 +93,53 @@ def run_circuit(circuit_fn: Callable, inputs, gamma):
 
     circuit_fn(bld, inputs) builds the whole two-phase circuit; `gamma` is
     the (L,) challenge value (zeros for phase-0-only evaluation). Tensors
-    live on gamma's device."""
-    bld = Builder(device=gamma.device)
+    live on gamma's device. A gamma of shape (L, B) with inputs of shape
+    (L, B, ...) runs B proofs at once (run_circuit_batch); values and
+    instance are then (L, B, cells)."""
+    bld = Builder(device=gamma.device, batch=gamma.shape[1:])
     bld.set_challenge(gamma)
     circuit_fn(bld, inputs)
     values = tuple(bld.finalize_values(c) for c in range(NUM_CTX))
     instance = (
-        torch.cat([cv.val for cv in bld.instance], dim=1)
+        torch.cat([cv.val for cv in bld.instance], dim=-1)
         if bld.instance
-        else F.zero((0,), gamma.device)
+        else F.zero(bld.batch + (0,), gamma.device)
     )
     return bld, values, instance
+
+
+def stack_inputs(inputs_list) -> dict:
+    """B circuit-input dicts -> one dict of (L, B, ...) tensors, the proof
+    axis right after the limb axis."""
+    return {key: torch.stack([inp[key] for inp in inputs_list], dim=1)
+            for key in inputs_list[0]}
+
+
+def run_circuit_batch(circuit_fn: Callable, inputs_list, gammas):
+    """B proofs' circuit runs as one run with a proof axis: inputs_list
+    holds B input dicts (as run_circuit takes them), gammas is (L, B).
+    Returns (builder, values, instance) with values[c] (L, B, cells) and
+    instance (L, B, m); proof b's slices equal run_circuit(circuit_fn,
+    inputs_list[b], gammas[:, b])."""
+    if tuple(gammas.shape) != (F.NLIMBS, len(inputs_list)):
+        raise ValueError(f"challenges of shape {tuple(gammas.shape)} for "
+                         f"{len(inputs_list)} proofs")
+    return run_circuit(circuit_fn, stack_inputs(inputs_list), gammas)
+
+
+def layouts_equal(a: Layout, b: Layout) -> bool:
+    """Whether two static layouts are the same (every index array, bound,
+    constant and copy group)."""
+    def same(x, y):
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            return np.array_equal(np.asarray(x), np.asarray(y))
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(same(x[k], y[k]) for k in x)
+        if isinstance(x, (list, tuple)):
+            return len(x) == len(y) and all(map(same, x, y))
+        return x == y
+    return all(same(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(Layout))
 
 
 def trace_layout(circuit_fn: Callable, example_inputs) -> Layout:
