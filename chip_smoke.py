@@ -76,20 +76,34 @@ Phases, each printed with its time; any failure exits non-zero:
    phase-0 and full circuit runs of all 64 (wall time, peak memory),
    proofs 0 and 63 against their per-proof runs, and eight per-proof run
    pairs timed and scaled to 64;
-16. timing: each kernel's wrapper again, at the shape and field of its
-   largest launch in phases 5-15 (bfly, which no module calls, at
+16. mesh: ``parallel/sharding.Mesh([cuda:0] * 4)``, four shards that
+   share the one card. The keygen's pk loaded anew, a warm-up and a timed
+   ``PV.prove(..., rng_seed=b"s0", mesh=mesh)`` of bfv.in: byte-identical
+   to phase 9's serial proof, accepted by the port's verify and rejected
+   with one byte flipped; ``prove_stream`` of the first two inputs with
+   the mesh, depth 2: equal to the batch's first two proofs; then, each
+   against its single-device counterpart, exactly: ``sharded_coset_ntt``
+   and ``sharded_intt`` on an (20, 8, 8192) stack at ext n = 65,536,
+   ``distributed_ntt`` at k=16, ``sharded_msm_tab`` on the k=13 table (8
+   columns, and one blind tail at a row offset, against ``msm_tab``),
+   ``sharded_msm`` on 256 SRS points and ``batched_witgen`` of the eight
+   inputs; the mesh prove's wall time, stages, table-MSM calls, peak
+   memory and launches are printed;
+17. timing: each kernel's wrapper again, at the shape and field of its
+   largest launch in phases 5-16 (bfly, which no module calls, at
    bfly_dif's), on fresh random inputs, held to its plain version there
    too (exact equality), then timed with its plain version; plus one NTT
    of the same lanes through ``ntt.ntt``, whose time per stage shows what
    the stage's copies around ``bfly_dif`` cost;
-17. the ``matmul``, ``proof_paths``, ``k15``, ``nolag``, ``witgen64`` and
-   ``kernels`` JSON lines: per kernel, its launches in phases 5-7, in the
-   batch, the stream, the keccak phase, the k=15 phase, the no-Lagrange
-   keygen and prove and the batched witness of 64 (each must be > 0 for
-   mont_mul, add, sub and bfly_dif, except bfly_dif in the keccak phase,
-   whose circuit runs no NTT; bfly's launches are those of its check in
-   phase 3), its largest mismatch over phases 3 and 16, its time, its
-   plain version's time and its bound.
+18. the ``matmul``, ``proof_paths``, ``k15``, ``nolag``, ``witgen64``,
+   ``mesh`` and ``kernels`` JSON lines: per kernel, its launches in phases
+   5-7, in the batch, the stream, the keccak phase, the k=15 phase, the
+   no-Lagrange keygen and prove, the batched witness of 64 and the mesh
+   prove and stream (each must be > 0 for mont_mul, add, sub and
+   bfly_dif, except bfly_dif in the keccak phase, whose circuit runs no
+   NTT; bfly's launches are those of its check in phase 3), its largest
+   mismatch over phases 3 and 17, its time, its plain version's time and
+   its bound.
 
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 ``python3 chip_smoke.py --profile`` also prints, for mock, keygen, prove,
@@ -163,6 +177,13 @@ MATMUL_REPLACES = "zkfhe_tpu/ops/mxu_field.py:125"
 # run pairs (phase 0 + full) timed beside it and scaled to WITGEN_B
 WITGEN_B = 64
 WITGEN_SERIAL = 8
+# the mesh phase: shards of one card, the proofs of its stream, the columns
+# of its coset check (at the prover's ext n = 65,536) and the points of its
+# scan-MSM check
+MESH_SHARDS = 4
+MESH_STREAM_B = 2
+MESH_COLS = 8
+MESH_MSM_POINTS = 256
 # the table MSM's largest reduction tree over every path, (columns, lanes):
 # k=15's full-width calls, one column of W=53 windows (c=5) x 32768 rows
 TREE_SHAPE = (1, 53 * 32768)
@@ -539,7 +560,11 @@ def check_batch_and_stream(K, MX, dev, data_dir, params_dir):
             torch.cuda.synchronize()
             wall = time.time() - t0
         profile_report(prof, wall, f"prove_batch (B={BATCH_B}), second run")
-    return per, serial
+    # what the mesh phase compares with (the pk and SRS are loaded anew
+    # there, so that the phases between hold no k=13 state on the card)
+    ctx = dict(inputs=inputs, seeds=seeds, instances=instances,
+               proofs=proofs[:MESH_STREAM_B])
+    return per, serial, ctx
 
 
 def check_batched_traces(circuit, inputs, dev):
@@ -806,6 +831,131 @@ def check_witgen64(K, MX, MSM, dev, data_dir):
     return res, line
 
 
+def check_mesh(K, MX, MSM, dev, data_dir, params_dir, serial, ctx):
+    """Phase 16: the mesh path, Mesh([cuda:0] * MESH_SHARDS): the four
+    shards share one card. A warm-up and a timed ``PV.prove(mesh=)`` of
+    bfv.in (s0) on a freshly loaded pk, byte-identical to phase 9's serial
+    proof, verified and rejected with one byte flipped; ``prove_stream`` of
+    two inputs with the mesh, equal to the batch's first two; then every
+    sharding function against its single-device counterpart at the mesh
+    prove's largest shapes. Returns the prove's and the stream's
+    measurements and the JSON line."""
+    from zkfhe_tpu_torch.backend import keygen as KG
+    from zkfhe_tpu_torch.backend import prover as PV
+    from zkfhe_tpu_torch.backend import srs as SRS
+    from zkfhe_tpu_torch.backend import verifier as VF
+    from zkfhe_tpu_torch.models import bfv
+    from zkfhe_tpu_torch.ops import curve as C
+    from zkfhe_tpu_torch.ops import ntt as N
+    from zkfhe_tpu_torch.parallel import pipeline as PP
+    from zkfhe_tpu_torch.parallel import sharding as SH
+    from zkfhe_tpu_torch.trace import compile as TC
+    mesh = SH.Mesh([torch.device("cuda", 0)] * MESH_SHARDS)
+    print(f"[smoke] mesh: {MESH_SHARDS} shards, all on one card "
+          f"({torch.cuda.get_device_name(0)}): {mesh}")
+    t0 = time.time()
+    inputs, seeds = ctx["inputs"], ctx["seeds"]
+    circuit = bfv.make_bfv_circuit(bfv.BfvParams())
+    srs = SRS.load_or_generate(13, params_dir, dev)
+    vk = KG.load_vk(os.path.join(data_dir, "bfv.vk.npz"))
+    pk = KG.load_pk(os.path.join(data_dir, "bfv.pk.npz"), vk, circuit,
+                    inputs[0], device=dev)
+    PV.prove(pk, srs, circuit, inputs[0], rng_seed=b"warm", mesh=mesh)
+    print(f"[smoke] mesh set-up (pk, warm-up mesh prove): "
+          f"{time.time() - t0:.3f}s")
+    proof, r_pv = run_path(
+        K, MX, MSM, f"mesh prove ({MESH_SHARDS} shards, s0)",
+        lambda: PV.prove(pk, srs, circuit, inputs[0], rng_seed=seeds[0],
+                         mesh=mesh))
+    r_pv["stages"] = dict(PV.LAST_STAGES)
+    print(f"[smoke]   mesh prove stages: {r_pv['stages']}")
+    if proof != serial:
+        FAILURES.append("the mesh proof differs from the serial proof (s0)")
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    for label, pf, want in (("valid", proof, True),
+                            ("one proof byte flipped", bytes(bad), False)):
+        ok = VF.verify(vk, pf, ctx["instances"][0])
+        print(f"[smoke]   verify of the mesh proof, {label}: {ok}")
+        if ok is not want:
+            FAILURES.append(f"mesh proof: verify gave {ok} for {label}")
+    streamed, r_st = run_path(
+        K, MX, MSM, f"mesh prove_stream (depth 2, {MESH_STREAM_B} proofs)",
+        lambda: PP.prove_stream(pk, srs, circuit, inputs[:MESH_STREAM_B],
+                                rng_seeds=seeds[:MESH_STREAM_B], depth=2,
+                                mesh=mesh))
+    if streamed != ctx["proofs"]:
+        FAILURES.append("the mesh stream's proofs differ from the batch's")
+    line = dict(shards=MESH_SHARDS, devices=[str(d) for d in mesh.devices],
+                prove_s=r_pv["wall_s"], stages=r_pv["stages"],
+                msm_calls=r_pv["msm"]["msm_tab"],
+                msm_cols=r_pv["msm"]["msm_cols"], peak_gb=r_pv["peak_gb"],
+                stream_s=r_st["wall_s"], stream_peak_gb=r_st["peak_gb"],
+                checks={})
+
+    # each sharding function against the single-device one, exactly
+    rng = np.random.default_rng(16)
+    n = 1 << 13
+    dom_ext = N.Domain.new(16)
+    cpow = PV._pk_device_state(pk, N.Domain.new(13), dom_ext)["cpow"]
+
+    def check(name, fn):
+        t0 = time.time()
+        ok = fn()
+        torch.cuda.synchronize()
+        line["checks"][name] = dict(equal=bool(ok), s=time.time() - t0)
+        print(f"[smoke]   {name}: {'equal' if ok else 'DIFFER'} "
+              f"({time.time() - t0:.3f}s)")
+        if not ok:
+            FAILURES.append(f"mesh: {name} differs from the single-device "
+                            f"function")
+
+    stack = random_canonical(rng, (20, MESH_COLS, n), dev)
+    evals = {}
+
+    def coset():
+        evals["ev"] = SH.sharded_coset_ntt(dom_ext, stack, cpow, mesh)
+        return torch.equal(evals["ev"], PV._coset(dom_ext, stack, cpow))
+    check(f"sharded_coset_ntt (20, {MESH_COLS}, {n}) -> ext n "
+          f"{dom_ext.n}", coset)
+    check(f"sharded_intt (20, {MESH_COLS}, {dom_ext.n})", lambda: torch.equal(
+        SH.sharded_intt(dom_ext, evals["ev"], mesh),
+        N.intt(dom_ext, evals["ev"])))
+    x = evals.pop("ev")[:, 0].contiguous()
+    check("distributed_ntt k=16", lambda: torch.equal(
+        SH.distributed_ntt(x, 16, mesh), N.ntt(dom_ext, x)))
+    del stack, x
+
+    table = KG.make_committer(srs, n, n).table
+    sc = random_canonical(rng, (20, MESH_COLS, n), dev)
+    off = n - 10  # a blind tail's rows [u, n) of the k=13 circuits
+    tail = random_canonical(rng, (20, 1, n - off), dev)
+    check(f"sharded_msm_tab, k=13 table, {MESH_COLS} columns and one at "
+          f"row_offset {off}", lambda: C.decode_points(
+              SH.sharded_msm_tab(table, sc, mesh)) == C.decode_points(
+              MSM.msm_tab(table, sc)) and C.decode_points(
+              SH.sharded_msm_tab(table, tail, mesh, row_offset=off))
+          == C.decode_points(MSM.msm_tab(table, tail, row_offset=off)))
+    pts = (srs.g1[0][:, :MESH_MSM_POINTS], srs.g1[1][:, :MESH_MSM_POINTS])
+    sc2 = random_canonical(rng, (20, 2, MESH_MSM_POINTS), dev)
+    check(f"sharded_msm, {MESH_MSM_POINTS} SRS points", lambda:
+          C.decode_points(SH.sharded_msm(pts, sc2, mesh)) ==
+          C.decode_points(MSM.msm(pts, sc2)))
+    gammas = random_canonical(rng, (20, len(inputs)), dev)
+
+    def witgen():
+        _, v1, i1 = TC.run_circuit_batch(circuit, inputs, gammas)
+        v2, i2 = SH.batched_witgen(circuit, mesh)(inputs, gammas)
+        return (all(torch.equal(a, b) for a, b in zip(v1, v2))
+                and torch.equal(i1, i2))
+    check(f"batched_witgen of the {len(inputs)} inputs", witgen)
+    print(f"[smoke]   mesh prove {r_pv['wall_s']:.3f}s (phase 9's serial "
+          f"prove: see its line), table-MSM calls {line['msm_calls']} "
+          f"({line['msm_cols']} columns), peak {r_pv['peak_gb']:.3f} GB; "
+          f"stream of {MESH_STREAM_B} {r_st['wall_s']:.3f}s")
+    return r_pv, r_st, line
+
+
 def check_keccak(K, MX, MSM, cli, dev):
     """Phase 12: the keccak256 circuits of the JAX fixture on the card;
     returns the path's measurements (both circuits in one count)."""
@@ -1022,7 +1172,7 @@ def main():
     print(f"[smoke] mock: {mock}")
 
     tmp = tempfile.mkdtemp(prefix="zkfhe_smoke_")
-    paths = r_kc = k15 = nolag = w64 = None
+    paths = r_kc = k15 = nolag = w64 = mesh = None
     try:
         os.makedirs(os.path.join(tmp, "data", "bfv"))
         for name in ("bfv_empty.in", "bfv.in"):
@@ -1063,10 +1213,10 @@ def main():
                         os.path.join(tmp, "data"),
                         os.path.join(ROOT, "params"))
         t0 = time.time()
-        paths, serial = attempt(
+        paths, serial, ctx = attempt(
             "batch and stream", check_batch_and_stream, K, MX, dev,
             os.path.join(tmp, "data"), os.path.join(ROOT, "params")) or (
-                None, None)
+                None, None, None)
         print(f"[smoke] serial, batch and stream phases: "
               f"{time.time() - t0:.3f}s")
         r_kc = attempt("keccak", check_keccak, K, MX, MSM, cli, dev)
@@ -1082,6 +1232,12 @@ def main():
         w64 = attempt("witgen64", check_witgen64, K, MX, MSM, dev,
                       os.path.join(tmp, "data"))
         print(f"[smoke] witgen64 phase: {time.time() - t0:.3f}s")
+        t0 = time.time()
+        mesh = attempt("mesh", check_mesh, K, MX, MSM, dev,
+                       os.path.join(tmp, "data"),
+                       os.path.join(ROOT, "params"), serial, ctx) if ctx \
+            else None
+        print(f"[smoke] mesh phase: {time.time() - t0:.3f}s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1108,22 +1264,27 @@ def main():
                for k in zero}
     r_w64, w64_line = w64 or (None, None)
     c_w64 = r_w64["counts"] if r_w64 else zero
+    r_mpv, r_mst, mesh_line = mesh or (None, None, None)
+    c_mesh = r_mpv["counts"] if r_mpv else zero
+    c_mst = r_mst["counts"] if r_mst else zero
     on_path = [k for k in KERNELS if k != "bfly"]
     for ph, c, want in (("prove_batch", c_b, on_path + ["mat_mul_mont"]),
                         ("prove_stream", c_s, on_path + ["mat_mul_mont"]),
                         ("keccak", c_kc, ["mont_mul", "add", "sub"]),
                         ("k=15", c_k15, on_path + ["mat_mul_mont"]),
                         ("no-Lagrange", c_nolag, on_path + ["mat_mul_mont"]),
-                        ("witgen64", c_w64, on_path)):
+                        ("witgen64", c_w64, on_path),
+                        ("mesh prove", c_mesh, on_path + ["mat_mul_mont"]),
+                        ("mesh stream", c_mst, on_path + ["mat_mul_mont"])):
         for k in want:
             if c[k] == 0:
                 FAILURES.append(f"kernel {k} never launched in {ph}")
     # each kernel's largest launch over every driven path: the CLI verbs,
     # the serial, batch and stream proofs, keccak, k=15, the no-Lagrange
-    # keygen and prove and the batched witness of 64
+    # keygen and prove, the batched witness of 64, the mesh prove and stream
     l_paths = [r["largest"] for r, _ in paths.values()] if paths else []
-    l_paths += [r["largest"] for r in (r_kc, r_k15, r_nkg, r_npv, r_w64)
-                if r] + [l_k15m]
+    l_paths += [r["largest"] for r in (r_kc, r_k15, r_nkg, r_npv, r_w64,
+                                       r_mpv, r_mst) if r] + [l_k15m]
     largest = {}
     for k in KERNELS:
         seen = [v for v in [l.get(k) for l in [l_mock, l_kg, l_pv] + l_paths]
@@ -1144,7 +1305,8 @@ def main():
         replaces=MATMUL_REPLACES, launches=c_pv["mat_mul_mont"],
         launches_batch=c_b["mat_mul_mont"],
         launches_stream=c_s["mat_mul_mont"],
-        launches_k15=c_k15["mat_mul_mont"], shapes=matmul)}))
+        launches_k15=c_k15["mat_mul_mont"],
+        launches_mesh=c_mesh["mat_mul_mont"], shapes=matmul)}))
     print(json.dumps({"proof_paths": {
         name: dict(proofs=nb, **{key: r[key] for key in (
             "wall_s", "per_proof_s", "peak_gb", "msm_calls_per_proof",
@@ -1154,6 +1316,8 @@ def main():
     print(json.dumps({"k15": k15_result}))
     print(json.dumps({"nolag": nolag_line}))
     print(json.dumps({"witgen64": dict(w64_line, device=smi)}))
+    print(json.dumps({"mesh": dict(mesh_line, counts=c_mesh,
+                                   stream_counts=c_mst, device=smi)}))
     line = {"kernels": [dict(
         name=k, route="cuda", source=SOURCE,
         replaces=KERNELS[k]["replaces"], launches=launches[k],
@@ -1163,6 +1327,7 @@ def main():
         launches_batch=c_b[k], launches_stream=c_s[k],
         launches_keccak=c_kc[k], launches_k15=c_k15[k],
         launches_nolag=c_nolag[k], launches_witgen64=c_w64[k],
+        launches_mesh=c_mesh[k], launches_mesh_stream=c_mst[k],
         max_abs_err=errs[k], library_ms=None, **timing[k])
         for k in KERNELS]}
     print(json.dumps(line))

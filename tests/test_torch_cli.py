@@ -30,6 +30,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "zkfhe_tpu_torch.ops.mxu_field", "zkfhe_tpu_torch.native",
             "zkfhe_tpu_torch.backend.batch",
             "zkfhe_tpu_torch.parallel.pipeline",
+            "zkfhe_tpu_torch.parallel.sharding",
             "zkfhe_tpu_torch.models.keccak",
             "zkfhe_tpu_torch.scripts.bench_k15",
             "zkfhe_tpu_torch.scripts.witgen_batch",

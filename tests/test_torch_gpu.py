@@ -1,5 +1,6 @@
 """Card-only checks of the port's CUDA field kernels against their plain
-versions. They skip without a CUDA device; on a machine with one:
+versions, and of the device mesh over distinct cards. They skip without a
+CUDA device (the mesh checks without two); on a machine with one:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
@@ -66,3 +67,106 @@ def test_mat_mul_mont_on_card_matches_plain(cuda):
         assert torch.equal(got, MX.plain_mat_mul_mont(F.FR, A, B))
         assert torch.equal(got.cpu(), MX.mat_mul_mont(F.FR, A.cpu(),
                                                       B.cpu()))
+
+
+@pytest.fixture
+def cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices: a mesh over distinct "
+                    "cards")
+    return [torch.device("cuda", i)
+            for i in range(min(4, torch.cuda.device_count()))]
+
+
+def test_mesh_over_cards_matches_one_card(cards):
+    """parallel/sharding.py with each shard on its own card (peer copies,
+    each shard's work with its card current) against the single-device
+    functions on the first card: the four-step NTTs, a term batch with
+    constants and the batched circuit run exactly, the MSMs as points."""
+    from zkfhe_tpu_torch.backend import prover as PV
+    from zkfhe_tpu_torch.models import bfv
+    from zkfhe_tpu_torch.ops import curve as C
+    from zkfhe_tpu_torch.ops import msm as M
+    from zkfhe_tpu_torch.ops import ntt as N
+    from zkfhe_tpu_torch.parallel import sharding as SH
+    from zkfhe_tpu_torch.trace import compile as TC
+    dev, mesh = cards[0], SH.Mesh(cards)
+    nd = len(cards)
+    dom = N.Domain.new(16)
+    cpow = _rand(F.FR, dom.n, 11, dev)
+    stack = _rand(F.FR, 3 * 8192, 12, dev).reshape(20, 3, 8192)
+    ev = SH.sharded_coset_ntt(dom, stack, cpow, mesh)
+    assert ev.device == dev
+    assert torch.equal(ev, PV._coset(dom, stack, cpow))
+    assert torch.equal(SH.sharded_intt(dom, ev, mesh), N.intt(dom, ev))
+    x = ev[:, 0].contiguous()
+    assert torch.equal(SH.distributed_ntt(x, 16, mesh), N.ntt(dom, x))
+
+    g = 2 * nd
+    ws = _rand(F.FR, g, 13, dev)
+    z = _rand(F.FR, g * 512, 14, dev).reshape(20, g, 512)
+    v, sig = (_rand(F.FR, g * 6 * 512, s, dev).reshape(20, g, 6, 512)
+              for s in (15, 16))
+    dp = _rand(F.FR, g * 6, 17, dev).reshape(20, g, 6)
+    consts = [_rand(F.FR, 512, s, dev) for s in (18, 19)] + [
+        _rand(F.FR, 4, s, dev)[:, 0] for s in (20, 21)]
+    assert torch.equal(
+        SH.sharded_term_batch(PV._perm_chunks_partial, (), ws,
+                              [z, v, sig, dp], consts, mesh),
+        PV._perm_chunks_partial(ws, z, v, sig, dp, *consts))
+
+    pts = C.encode_points([C.G1_GEN.mul(3 * i + 1) for i in range(8 * nd)],
+                          device=dev)
+    sc = F.tensor(F.encode(F.FR, list(range(1, 16 * nd + 1))),
+                  dev).reshape(20, 2, 8 * nd)
+    table = M.build_table((pts[0], pts[1]))
+    assert C.decode_points(SH.sharded_msm_tab(table, sc, mesh)) == \
+        C.decode_points(M.msm_tab(table, sc))
+    part = sc[..., 3:8 * nd - 2]  # the first and last cards hold none
+    assert C.decode_points(SH.sharded_msm_tab(table, part, mesh,
+                                              row_offset=3)) == \
+        C.decode_points(M.msm_tab(table, part, row_offset=3))
+    assert C.decode_points(SH.sharded_msm((pts[0], pts[1]), sc, mesh)) == \
+        C.decode_points(M.msm((pts[0], pts[1]), sc))
+
+    params = bfv.BfvParams(n=16)
+    circuit = bfv.make_bfv_circuit(params)
+    ins = [bfv.generate_input(params, seed=300 + i).to_arrays(params, dev)
+           for i in range(nd)]
+    gammas = _rand(F.FR, 8, 22, dev)[:, :nd].contiguous()
+    _, v1, i1 = TC.run_circuit_batch(circuit, ins, gammas)
+    v2, i2 = SH.batched_witgen(circuit, mesh)(ins, gammas)
+    assert all(torch.equal(a, b) for a, b in zip(v1, v2))
+    assert torch.equal(i1, i2)
+
+
+def test_mesh_prove_over_cards_matches_one_card(cards):
+    """A k=9 proof (tests/test_backend.py's circuit) with its hot stages
+    split over distinct cards: the one-card proof's bytes, verified."""
+    import importlib.util
+    import os
+    from zkfhe_tpu_torch.backend import keygen as KG
+    from zkfhe_tpu_torch.backend import prover as PV
+    from zkfhe_tpu_torch.backend import srs as SRS
+    from zkfhe_tpu_torch.backend import verifier as VF
+    from zkfhe_tpu_torch.parallel import sharding as SH
+    from zkfhe_tpu_torch.trace import compile as TC
+    from zkfhe_tpu_torch.trace import range_ops as R
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_prover_reference", os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "fixtures",
+            "make_torch_prover_reference.py"))
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    dev = cards[0]
+    srs = SRS.generate(gen.K, device=dev)
+    tin = {"x": F.tensor(F.encode(F.FR, gen.XS), dev),
+           "y": F.tensor(F.encode(F.FR, gen.YS), dev)}
+    circuit = gen.make_circuit(R)
+    pk = KG.keygen(circuit, tin, gen.K, srs)
+    one = PV.prove(pk, srs, circuit, tin, rng_seed=b"cards")
+    many = PV.prove(pk, srs, circuit, tin, rng_seed=b"cards",
+                    mesh=SH.Mesh(cards))
+    assert many == one
+    inst = F.array_to_ints(TC.make_witgen_p0(circuit)(tin)[1])
+    assert VF.verify(pk.vk, many, inst)

@@ -81,8 +81,9 @@ def test_protocol_copy_matches_jax():
         for fn in ("build_terms", "fixed_poly_names", "opening_schedule",
                    "rotation_sets", "num_lookup_groups", "num_perm_chunks"):
             assert getattr(TPROTO, fn)(shape) == getattr(JPROTO, fn)(shape)
-        assert np.array_equal(TPV._term_plan(shape),
-                              JPV._term_plan(shape, 1))
+        for nd in (1, 2, 4, 8):  # the batch widths of a mesh of nd
+            assert np.array_equal(TPV._term_plan(shape, nd),
+                                  JPV._term_plan(shape, nd)), nd
     assert (TPROTO.ROTATIONS, TPROTO.NUM_QUOT_CHUNKS) == (
         JPROTO.ROTATIONS, JPROTO.NUM_QUOT_CHUNKS)
     rng = np.random.default_rng(3)

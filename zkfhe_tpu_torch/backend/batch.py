@@ -218,6 +218,7 @@ def prove_batch(pk: ProvingKey, srs: SRS, circuit_fn, inputs_list,
         return F.tensor(F.encode(FR, xs, mont=True), dev)
 
     dstate = PV._pk_device_state(pk, dom, dom_ext)
+    plan_np, plan = PV._term_plan_of(pk, dstate)
     _timer = StageTimer(dev)
 
     trs = [Transcript() for _ in range(B)]
@@ -373,7 +374,7 @@ def prove_batch(pk: ProvingKey, srs: SRS, circuit_fn, inputs_list,
     # per-proof term weights: ONE upload of the B challenges, one batched
     # power series, one take against the pk's term plan
     ypows_b = F.power_series(FR, enc_b(ys), ny)  # (L, B, ny)
-    ws_all = ypows_b.index_select(2, dstate["term_plan"])
+    ws_all = ypows_b.index_select(2, plan)
     _ws_cursor = [0]
 
     def y_weight(ti):
@@ -466,7 +467,7 @@ def prove_batch(pk: ProvingKey, srs: SRS, circuit_fn, inputs_list,
         pk's static term plan (checked against tis, so the batched loop
         below and prover._term_plan cannot drift), zero-padded."""
         o, m = _ws_cursor[0], len(tis)
-        if not np.array_equal(dstate["term_plan_np"][o:o + m],
+        if not np.array_equal(plan_np[o:o + m],
                               [ny - 1 - ti for ti in tis]):
             raise AssertionError("term plan out of sync with the batched "
                                  "quotient loop")

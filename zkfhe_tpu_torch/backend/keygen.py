@@ -22,6 +22,7 @@ from ..ops import field as F
 from ..ops import msm as M
 from ..ops import ntt as N
 from ..ops.field import FR
+from ..parallel import sharding as SH
 from . import srs as SRS
 from .assembly import Assembly, assemble
 from .transcript import _point_bytes
@@ -99,13 +100,19 @@ class Committer:
     """Fixed-base commitment engine: every commitment is a gather + log-
     depth tree reduction against ONE table of shifted multiples of the
     Lagrange-basis SRS points (ops/msm.py). Columns with narrow values
-    (quantised to ops/msm.TAB_TIERS) gather only their low windows."""
+    (quantised to ops/msm.TAB_TIERS) gather only their low windows. With a
+    ``mesh`` (parallel/sharding.Mesh) every table MSM splits the point axis
+    over the mesh's devices (sharding.sharded_msm_tab): the same points.
+    ``mesh_axis`` names the mesh's one axis, as in JAX."""
 
-    def __init__(self, srs: "SRS.SRS", n: int, u: int):
+    def __init__(self, srs: "SRS.SRS", n: int, u: int, mesh=None,
+                 mesh_axis: str = "chips"):
         assert srs.g1_lag is not None, "SRS lacks Lagrange-basis points"
         self.srs = srs
         self.n = n
         self.u = u
+        SH.mesh_size(mesh, mesh_axis)  # a KeyError for another axis name
+        self.mesh = mesh
         self.tier_cap, self.full_cap = _batch_caps(n)
         self._tab = None
 
@@ -128,6 +135,12 @@ class Committer:
         if K < kpad:
             std = torch.cat([std, F.zero((kpad - K,) + std.shape[2:],
                                          std.device)], dim=1)
+        if self.mesh is not None:
+            # the point axis split over the mesh: each shard gathers for
+            # the rows of the range that it holds
+            jac = SH.sharded_msm_tab(self.table, std, self.mesh,
+                                     max_bits=max_bits, row_offset=row_offset)
+            return SH.put(torch.stack(jac), std.device)
         return M.msm_tab_stacked(self.table, std, max_bits=max_bits,
                                  row_offset=row_offset)
 
@@ -224,12 +237,14 @@ class Committer:
                                   sync=sync)
 
 
-def make_committer(srs: "SRS.SRS", n: int, u: int) -> "Committer | None":
-    """Committer for the table-MSM path, or None when the SRS has no
-    Lagrange-basis points (callers then commit with commit_columns)."""
+def make_committer(srs: "SRS.SRS", n: int, u: int, mesh=None,
+                   mesh_axis: str = "chips") -> "Committer | None":
+    """Committer for the table-MSM path (split over ``mesh`` when given), or
+    None when the SRS has no Lagrange-basis points (callers then commit
+    with commit_columns, on one device)."""
     if srs.g1_lag is None:
         return None
-    return Committer(srs, n, u)
+    return Committer(srs, n, u, mesh=mesh, mesh_axis=mesh_axis)
 
 
 def commit_columns_lagrange(lag_pts, evals_mont, u: int,

@@ -18,11 +18,14 @@ SHPLONK multiopen (see backend/protocol.py for the exact schedule):
 Every stage runs on the device of the proving key's tensors, through the
 port's field layer: ``add``/``sub``/``mont_mul`` and the NTT's ``bfly_dif``
 are the hand-written CUDA kernels on the card, and the evaluations and
-SHPLONK folds go through ``ops/mxu_field.mat_mul_mont``. The JAX
-package's ``_j_*`` stage functions keep their names here as plain
-functions (PyTorch runs eagerly; there is nothing to jit). The field
-arithmetic is exact, so the proof bytes equal the JAX package's whenever
-both draw the same blinding (the ``rng=`` seam of ``prove``).
+SHPLONK folds go through ``ops/mxu_field.mat_mul_mont``. With a ``mesh``,
+the commitments, the quotient's coset NTTs and term batches and its
+finishing iNTT are split over the mesh's devices (parallel/sharding.py),
+with the same bytes. The JAX package's ``_j_*`` stage functions keep
+their names here as plain functions (PyTorch runs eagerly; there is
+nothing to jit). The field arithmetic is exact, so the proof bytes equal
+the JAX package's whenever both draw the same blinding (the ``rng=`` seam
+of ``prove``).
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from ..ops import field as F
 from ..ops import mxu_field as MX
 from ..ops import ntt as N
 from ..ops.field import FR
+from ..parallel import sharding as SH
 from ..trace.builder import CTX_LK, CTX_P0, LOOKUP_BITS, NUM_CTX
 from ..trace.compile import make_witgen, make_witgen_p0
 from ..utils.profiling import StageTimer
@@ -63,7 +67,8 @@ COS_B = 16
 # of one prove. At k=13 a coset is 5.2 MB and a proof has about 600.
 STATIC_COSET_MB = 2200
 COSET_CACHE_MB = 6000
-# term batch widths of the quotient loop (single device)
+# term batch widths of the quotient loop on one device; a mesh of nd devices
+# rounds each up to a multiple of nd (_batch_widths)
 GATE_BATCH = 8
 PERMJ = 4
 EV_CHUNK = 128  # polys per evaluation matmul
@@ -403,6 +408,50 @@ def _j_quot_finish(dom_ext, acc, zh_inv, cpow_inv):
     return F.mont_mul(FR, h_coeffs, _lift(cpow_inv, h_coeffs))
 
 
+# ---- the quotient's three mesh sites (serial shapes; mesh None: one device)
+
+def _batch_widths(nd: int) -> tuple[int, int]:
+    """(gate/challenge/chain batch width, permutation-chunk batch width):
+    GATE_BATCH and PERMJ rounded up to a multiple of the device count, so
+    that the term axis splits evenly; padding lanes carry weight 0 and
+    zero stacks."""
+    return -(-GATE_BATCH // nd) * nd, -(-PERMJ // nd) * nd
+
+
+def _coset_batch(dom_ext, stack, cpow, mesh=None):
+    """One launch stack of the coset cache: _coset, or the mesh-split
+    four-step (sharding.sharded_coset_ntt), back on the stack's device."""
+    if mesh is None:
+        return _coset(dom_ext, stack, cpow)
+    return SH.put(SH.sharded_coset_ntt(dom_ext, stack, cpow, mesh),
+                  stack.device)
+
+
+def _term_batch(acc, partial_fn, static_args, ws, stacks, consts,
+                mesh=None):
+    """One term-batch accumulation: acc + partial_fn(*static_args, ws,
+    *stacks, *consts), with the term axis split over the mesh
+    (sharding.sharded_term_batch) when there is one."""
+    if mesh is None:
+        part = partial_fn(*static_args, ws, *stacks, *consts)
+    else:
+        part = SH.put(SH.sharded_term_batch(partial_fn, static_args, ws,
+                                            stacks, consts, mesh),
+                      acc.device)
+    return F.add(FR, acc, part)
+
+
+def _quot_finish(dom_ext, acc, zh_inv, cpow_inv, mesh=None):
+    """_j_quot_finish, with the iNTT mesh-split (sharding.sharded_intt)
+    under a mesh."""
+    if mesh is None:
+        return _j_quot_finish(dom_ext, acc, zh_inv, cpow_inv)
+    h_ev = F.mont_mul(FR, acc, zh_inv)
+    h_c = SH.put(SH.sharded_intt(dom_ext, h_ev[:, None], mesh),
+                 acc.device)[:, 0]
+    return F.mont_mul(FR, h_c, cpow_inv)
+
+
 def _j_evals_batch(coeffs_stack, xpow):
     """(L, K, n) stack -> (L, K) evals at one point xpow (L, n)."""
     prods = F.mont_mul(FR, coeffs_stack,
@@ -561,23 +610,25 @@ def _j_perm_z(dom, u, perm_vals, sigma_vals, dpow, wpow, beta_m, gamma_m,
 # The prover
 # ---------------------------------------------------------------------------
 
-def _term_plan(shape) -> np.ndarray:
+def _term_plan(shape, nd: int = 1) -> np.ndarray:
     """ypows indices (exponent ny-1-ti, the y-weight of term ti) of every
     BATCHED term-weight slice of the quotient loop, in the order the loop
-    consumes them. The consuming enc_ws checks each slice against this
-    plan, so the two copies of the grouping logic cannot drift."""
+    consumes them, for a mesh of nd devices (batch widths _batch_widths).
+    The consuming enc_ws checks each slice against this plan, so the two
+    copies of the grouping logic cannot drift."""
     terms = PROTO.build_terms(shape)
     ny = len(terms)
     nlk = shape["num_lk_cols"]
     P = shape["num_perm_cols"]
+    gate_b, permj = _batch_widths(nd)
     by_kind = {}
     for ti, (kind, arg) in enumerate(terms):
         by_kind.setdefault(kind, []).append((ti, arg))
     out = []
     for kind in ("gate", "challenge"):
         grp_all = by_kind.get(kind, [])
-        for s in range(0, len(grp_all), GATE_BATCH):
-            out += [ny - 1 - ti for ti, _ in grp_all[s:s + GATE_BATCH]]
+        for s in range(0, len(grp_all), gate_b):
+            out += [ny - 1 - ti for ti, _ in grp_all[s:s + gate_b]]
     lk_full = [
         (ti, g) for ti, g in by_kind.get("lookup_h", [])
         if min((g + 1) * LOOKUP_GROUP, nlk) - g * LOOKUP_GROUP
@@ -587,18 +638,19 @@ def _term_plan(shape) -> np.ndarray:
     pc_full = [(ti, j) for ti, j in by_kind.get("perm_chunk", [])
                if min((j + 1) * PERM_CHUNK, P) - j * PERM_CHUNK
                == PERM_CHUNK]
-    for s in range(0, len(pc_full), PERMJ):
-        out += [ny - 1 - ti for ti, _ in pc_full[s:s + PERMJ]]
+    for s in range(0, len(pc_full), permj):
+        out += [ny - 1 - ti for ti, _ in pc_full[s:s + permj]]
     chains = by_kind.get("perm_chain", [])
-    for s in range(0, len(chains), GATE_BATCH):
-        out += [ny - 1 - ti for ti, _ in chains[s:s + GATE_BATCH]]
+    for s in range(0, len(chains), gate_b):
+        out += [ny - 1 - ti for ti, _ in chains[s:s + gate_b]]
     return np.asarray(out, dtype=np.int64)
 
 
 def _pk_device_state(pk: ProvingKey, dom, dom_ext) -> dict:
     """Per-pk constants on the pk's device, computed once and reused by
     every prove: scatter indices, power series, the Z_H^-1 cycle, the
-    lookup table, the rotation twiddles and the term plan."""
+    lookup table, the rotation twiddles and the term plans
+    (_term_plan_of)."""
     key = (dom.n, dom_ext.n)
     cache = getattr(pk, "_dev_state", None)
     if cache is not None and cache.get("key") == key:
@@ -644,17 +696,35 @@ def _pk_device_state(pk: ProvingKey, dom, dom_ext) -> dict:
         e = r if r != PROTO.ROT_LAST else asm.u
         rp.append(F.power_series(FR, enc(pow(dom.omega, e, FR.p)), n))
     c["rot_pows"] = torch.stack(rp, dim=2)  # (L, n, R)
-    plan = _term_plan(pk.vk.shape)
-    c["term_plan_np"] = plan
-    c["term_plan"] = torch.as_tensor(plan, device=dev)
+    c["term_plans"] = {}
     pk._dev_state = c
     return c
 
 
+def _term_plan_of(pk: ProvingKey, dstate: dict, nd: int = 1):
+    """The term plan of a mesh of nd devices (1: none) as a numpy array
+    and on the pk's device, made once per nd and kept in the pk's device
+    state."""
+    plans = dstate["term_plans"]
+    if nd not in plans:
+        plan = _term_plan(pk.vk.shape, nd)
+        plans[nd] = (plan, torch.as_tensor(
+            plan, device=pk.fixed_coeffs.device))
+    return plans[nd]
+
+
 def prove(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
           rng_seed: bytes | None = None, rng=None,
-          debug: bool = False) -> bytes:
+          debug: bool = False, mesh=None, mesh_axis: str = "chips") -> bytes:
     """Produce a proof on the device of the pk's tensors.
+
+    With ``mesh`` (parallel/sharding.Mesh) the hot stages are split over
+    its devices: the commitment MSMs over the SRS-point axis
+    (sharding.sharded_msm_tab), the quotient's coset NTTs as the four-step
+    (sharded_coset_ntt, sharded_intt) and its term batches over the term
+    axis (sharded_term_batch); the partial results are gathered and
+    combined on ``mesh.devices[0]``. The field arithmetic is exact, so the
+    proof bytes are the single-device proof's.
 
     Blinding comes from ``rng`` when given (any object whose
     ``draw(rows, cols)`` returns a (20, rows, cols) Montgomery limb tensor
@@ -666,7 +736,7 @@ def prove(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
     the same either way."""
     report = {} if debug else None
     gen = _prove_gen(pk, srs, circuit_fn, inputs, rng_seed=rng_seed, rng=rng,
-                     debug=report)
+                     debug=report, mesh=mesh, mesh_axis=mesh_axis)
     try:
         while True:
             next(gen)
@@ -682,7 +752,8 @@ def prove(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
 
 def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
                rng_seed: bytes | None = None, rng=None,
-               coset_cache_mb: int | None = None, debug: dict | None = None):
+               coset_cache_mb: int | None = None, debug: dict | None = None,
+               mesh=None, mesh_axis: str = "chips"):
     """Generator form of prove(): yields where device work (MSMs, NTTs,
     term batches) has been enqueued but its device-to-host transfer and
     the transcript hashing that follows have not happened yet. prove()
@@ -691,7 +762,8 @@ def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
     (COSET_CACHE_MB when None; parallel/pipeline.py divides it among the
     proofs in flight). Returns (the proof's bytes, its StageTimer), whose
     marks never wait for the device. debug: a dict that receives the
-    debug report (_debug_terms_on_domain, _debug_at_x; None skips them)."""
+    debug report (_debug_terms_on_domain, _debug_at_x; None skips them).
+    mesh, mesh_axis: as for prove()."""
     asm = pk.asm
     k, n, u = asm.k, asm.n, asm.u
     dev = pk.fixed_coeffs.device
@@ -704,7 +776,9 @@ def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
     enc = lambda x: _enc_mont_scalar(x, dev)  # noqa: E731
 
     rngd = rng if rng is not None else _ProofRng(rng_seed, dev)
+    nd = SH.mesh_size(mesh, mesh_axis)
     dstate = _pk_device_state(pk, dom, dom_ext)
+    plan_np, plan = _term_plan_of(pk, dstate, nd)
     _timer = StageTimer(dev)
 
     tr = Transcript()
@@ -726,7 +800,7 @@ def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
     adv_p0 = (_j_advice_p0(p0, n, u, values0_p0, scatter_idx[CTX_P0],
                            blind[:, :p0]) if p0 else None)
 
-    committer = make_committer(srs, n, u)
+    committer = make_committer(srs, n, u, mesh=mesh, mesh_axis=mesh_axis)
 
     # without Lagrange-basis points (committer None) every commitment is
     # commit_columns over the coefficients: an iNTT for evaluation-form
@@ -901,7 +975,7 @@ def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
     # term weights y^(ny-1-ti): one power series and one take against the
     # pk's term plan
     ypows_dev = F.power_series(FR, enc(y), ny)
-    ws_all = ypows_dev.index_select(1, dstate["term_plan"])
+    ws_all = ypows_dev.index_select(1, plan)
     _ws_cursor = [0]
 
     def y_weight(ti):
@@ -949,7 +1023,7 @@ def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
             if len(grp2) < COS_B:
                 stack = torch.cat(
                     [stack, _zeros((L, COS_B - len(grp2), n), dev)], dim=1)
-            ev = _coset(dom_ext, stack, cpow)
+            ev = _coset_batch(dom_ext, stack, cpow, mesh)
             for i2, nm in enumerate(grp2):
                 if len(cos_ref) < cos_budget:
                     cos_ref[nm] = (ev, i2)
@@ -990,8 +1064,7 @@ def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
         """(L, width) term weights: the next len(tis) entries of the pk's
         static term plan (checked against tis), zero-padded to width."""
         o, m = _ws_cursor[0], len(tis)
-        if not np.array_equal(dstate["term_plan_np"][o:o + m],
-                              [ny - 1 - ti for ti in tis]):
+        if not np.array_equal(plan_np[o:o + m], [ny - 1 - ti for ti in tis]):
             raise AssertionError("term plan out of sync with the quotient "
                                  "loop")
         _ws_cursor[0] = o + m
@@ -1035,22 +1108,26 @@ def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
     coset_fill(pre[:room])
 
     # ---- gate + challenge terms, in fixed-width batches -------------------
-    for s in range(0, len(by_kind.get("gate", [])), GATE_BATCH):
-        grp = by_kind["gate"][s:s + GATE_BATCH]
-        a_ev = coset_stack([f"adv{arg}" for _, arg in grp], GATE_BATCH)
-        sel_ev = coset_stack([fq(f"sel_{arg}") for _, arg in grp],
-                             GATE_BATCH)
-        acc = _j_gate_terms_batch(
-            acc, enc_ws([ti for ti, _ in grp], GATE_BATCH), a_ev, sel_ev)
+    # under a mesh the widths round up to a multiple of the device count
+    # (padding lanes: weight 0, zero stacks) and each batch's term axis is
+    # split over the mesh (_term_batch)
+    gate_b, permj = _batch_widths(nd)
 
-    for s in range(0, len(by_kind.get("challenge", [])), GATE_BATCH):
-        grp = by_kind["challenge"][s:s + GATE_BATCH]
-        a_ev = coset_stack([f"adv{arg}" for _, arg in grp], GATE_BATCH)
-        qg_ev = coset_stack([fq(f"qgamma_{arg}") for _, arg in grp],
-                            GATE_BATCH)
-        acc = _j_chal_terms_batch(
-            acc, enc_ws([ti for ti, _ in grp], GATE_BATCH), a_ev, qg_ev,
-            gamma_m)
+    for s in range(0, len(by_kind.get("gate", [])), gate_b):
+        grp = by_kind["gate"][s:s + gate_b]
+        a_ev = coset_stack([f"adv{arg}" for _, arg in grp], gate_b)
+        sel_ev = coset_stack([fq(f"sel_{arg}") for _, arg in grp], gate_b)
+        acc = _term_batch(acc, _gate_terms_partial, (),
+                          enc_ws([ti for ti, _ in grp], gate_b),
+                          [a_ev, sel_ev], [], mesh)
+
+    for s in range(0, len(by_kind.get("challenge", [])), gate_b):
+        grp = by_kind["challenge"][s:s + gate_b]
+        a_ev = coset_stack([f"adv{arg}" for _, arg in grp], gate_b)
+        qg_ev = coset_stack([fq(f"qgamma_{arg}") for _, arg in grp], gate_b)
+        acc = _term_batch(acc, _chal_terms_partial, (),
+                          enc_ws([ti for ti, _ in grp], gate_b),
+                          [a_ev, qg_ev], [gamma_m], mesh)
 
     # ---- logUp helper terms: all FULL groups in one call -------------------
     lk_full, lk_ragged = [], []
@@ -1059,45 +1136,47 @@ def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
         (lk_full if len(cols) == LOOKUP_GROUP else lk_ragged).append(
             (ti, g, cols))
     if lk_full:
-        h_ev = coset_stack([f"lookup_h{g}" for _, g, _ in lk_full])
+        ng = -(-len(lk_full) // nd) * nd  # groups, padded to split evenly
+        h_ev = coset_stack([f"lookup_h{g}" for _, g, _ in lk_full], ng)
         l_ev = coset_stack(
             [f"adv{lk_base + i}" for _, _, cols in lk_full for i in cols],
-            reshape=(L, len(lk_full), LOOKUP_GROUP, ext_n))
-        acc = _j_lookup_h_terms_batch(
-            acc, enc_ws([ti for ti, _, _ in lk_full], len(lk_full)),
-            h_ev, l_ev, qact_ev, beta_lm)
+            width=ng * LOOKUP_GROUP, reshape=(L, ng, LOOKUP_GROUP, ext_n))
+        acc = _term_batch(acc, _lookup_h_terms_partial, (),
+                          enc_ws([ti for ti, _, _ in lk_full], ng),
+                          [h_ev, l_ev], [qact_ev, beta_lm], mesh)
     for ti, g, cols in lk_ragged:
         lstack = polys.gather([f"adv{lk_base + i}" for i in cols])
         acc = _j_lookup_h_term(dom_ext, acc, y_weight(ti),
                                polys[f"lookup_h{g}"], lstack, fco("q_act"),
                                cpow, beta_lm)
 
-    # ---- permutation chunk terms: FULL chunks in batches of PERMJ ---------
+    # ---- permutation chunk terms: FULL chunks in batches of permj ---------
     pc_full = [(ti, j) for ti, j in by_kind.get("perm_chunk", [])
                if min((j + 1) * PERM_CHUNK, P) - j * PERM_CHUNK == PERM_CHUNK]
     pc_ragged = [(ti, j) for ti, j in by_kind.get("perm_chunk", [])
                  if (ti, j) not in pc_full]
-    for s in range(0, len(pc_full), PERMJ):
-        grp = pc_full[s:s + PERMJ]
-        npad = PERMJ - len(grp)
+    for s in range(0, len(pc_full), permj):
+        grp = pc_full[s:s + permj]
+        npad = permj - len(grp)
 
         def chunk_ev(name_fn):
             return coset_stack(
                 [name_fn(i) for _, j in grp
                  for i in range(j * PERM_CHUNK, (j + 1) * PERM_CHUNK)],
-                width=(len(grp) + npad) * PERM_CHUNK,
-                reshape=(L, len(grp) + npad, PERM_CHUNK, ext_n))
+                width=permj * PERM_CHUNK,
+                reshape=(L, permj, PERM_CHUNK, ext_n))
 
-        z_ev = coset_stack([f"perm_z{j}" for _, j in grp], PERMJ)
+        z_ev = coset_stack([f"perm_z{j}" for _, j in grp], permj)
         v_ev = chunk_ev(perm_col_name)
         sig_ev = chunk_ev(lambda i: f"sigma{i}")
         dp_rows = [dpow[:, j * PERM_CHUNK:(j + 1) * PERM_CHUNK]
                    for _, j in grp]
         dp_rows += [_zeros((L, PERM_CHUNK), dev)] * npad
         dpows = torch.stack(dp_rows, dim=1)
-        acc = _j_perm_chunks_batch(
-            acc, enc_ws([ti for ti, _ in grp], PERMJ), z_ev, v_ev, sig_ev,
-            dpows, qact_ev, xcoset, beta_pm, gamma_pm)
+        acc = _term_batch(acc, _perm_chunks_partial, (),
+                          enc_ws([ti for ti, _ in grp], permj),
+                          [z_ev, v_ev, sig_ev, dpows],
+                          [qact_ev, xcoset, beta_pm, gamma_pm], mesh)
     for ti, j in pc_ragged:
         idxs = list(range(j * PERM_CHUNK, min((j + 1) * PERM_CHUNK, P)))
         acc = _j_perm_chunk_term(
@@ -1110,13 +1189,13 @@ def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
     # ---- chain terms in batches -------------------------------------------
     qfirst_ev = coset_of(fq("q_first"))
     chains = by_kind.get("perm_chain", [])
-    for s in range(0, len(chains), GATE_BATCH):
-        grp = chains[s:s + GATE_BATCH]
-        zj_ev = coset_stack([f"perm_z{j}" for _, j in grp], GATE_BATCH)
-        zp_ev = coset_stack([f"perm_z{j - 1}" for _, j in grp], GATE_BATCH)
-        acc = _j_perm_chains_batch(
-            u, acc, enc_ws([ti for ti, _ in grp], GATE_BATCH), zj_ev, zp_ev,
-            qfirst_ev)
+    for s in range(0, len(chains), gate_b):
+        grp = chains[s:s + gate_b]
+        zj_ev = coset_stack([f"perm_z{j}" for _, j in grp], gate_b)
+        zp_ev = coset_stack([f"perm_z{j - 1}" for _, j in grp], gate_b)
+        acc = _term_batch(acc, _perm_chains_partial, (u,),
+                          enc_ws([ti for ti, _ in grp], gate_b),
+                          [zj_ev, zp_ev], [qfirst_ev], mesh)
 
     # ---- singleton terms ---------------------------------------------------
     for ti, (kind, arg) in enumerate(terms):
@@ -1149,7 +1228,8 @@ def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
     cos_ref.clear()  # free this prove's coset residency
     yield  # quotient term batches enqueued
     _timer.mark("quot_terms")
-    h_coeffs_full = _j_quot_finish(dom_ext, acc, dstate["zh_inv"], cpow_inv)
+    h_coeffs_full = _quot_finish(dom_ext, acc, dstate["zh_inv"], cpow_inv,
+                                 mesh)
     if debug is not None:
         dbg_tail = h_coeffs_full[:, PROTO.NUM_QUOT_CHUNKS * n:]
     hq = h_coeffs_full[:, : PROTO.NUM_QUOT_CHUNKS * n].reshape(
