@@ -1,5 +1,6 @@
-"""Card-only checks of the port's CUDA field kernels against their plain
-versions, and of the device mesh over distinct cards. They skip without a
+"""Card-only checks of the port's CUDA kernels (the field kernels and
+mat_mul_mont's three) against their plain versions, and of the device mesh
+over distinct cards. They skip without a
 CUDA device (the mesh checks without two); on a machine with one:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -54,19 +55,72 @@ def test_wrappers_launch_on_card_and_count(cuda):
         K.cuda_binary("add", F.FR, x, x.cpu())
 
 
-def test_mat_mul_mont_on_card_matches_plain(cuda):
+# (Bt, M, K, N): ragged plane rows M*38 and columns 38*N against the
+# product's 64 x 64 tiles, K below, at and past its 32 and 128-byte steps
+MXU_SHAPES = [(1, 1, 13, 300), (2, 3, 40, 5), (1, 7, 64, 33),
+              (3, 2, 161, 9), (1, 2, 8192, 5)]
+
+
+@pytest.mark.parametrize("Bt,M,Kd,N", MXU_SHAPES)
+def test_mat_mul_mont_on_card_matches_plain(cuda, Bt, M, Kd, N):
+    """Each of mat_mul_mont's kernels against its plain version, and the
+    call against the plain chain, with four launches per call."""
     from zkfhe_tpu_torch.ops import mxu_field as MX
-    rng = np.random.default_rng(9)
-    for M, Kd, N in ((1, 13, 300), (3, 40, 5)):
-        a = _rand(F.FR, M * Kd, int(rng.integers(1 << 30)), cuda)
-        b = _rand(F.FR, Kd * N, int(rng.integers(1 << 30)), cuda)
-        A, B = a.reshape(20, M, Kd), b.reshape(20, Kd, N)
-        MX.reset_counts()
-        got = MX.mat_mul_mont(F.FR, A, B)
-        assert MX.LAUNCHES["mat_mul_mont"] == 1
-        assert torch.equal(got, MX.plain_mat_mul_mont(F.FR, A, B))
-        assert torch.equal(got.cpu(), MX.mat_mul_mont(F.FR, A.cpu(),
-                                                      B.cpu()))
+    seed = Bt * 10007 + M * 101 + Kd + N
+    A = _rand(F.FR, Bt * M * Kd, seed, cuda).reshape(20, Bt, M, Kd)
+    B = _rand(F.FR, Bt * Kd * N, seed + 1, cuda).reshape(20, Bt, Kd, N)
+    MX.reset_counts()
+    got = MX.mat_mul_mont(F.FR, A, B)
+    assert MX.LAUNCHES == {"mat_mul_mont": 1, "planes7": 2,
+                           "plane_mm_s8": 1, "mxu_epilogue": 1}
+    assert torch.equal(got, MX.plain_mat_mul_mont(F.FR, A, B))
+    lhs, rhs = MX.cuda_planes7(A, True), MX.cuda_planes7(B, False)
+    assert torch.equal(lhs, MX.plain_planes7(A, True))
+    assert torch.equal(rhs, MX.plain_planes7(B, False))
+    C = MX.cuda_plane_mm_s8(lhs, rhs)
+    assert torch.equal(C, MX.plain_plane_product(lhs, rhs))
+    assert torch.equal(MX.cuda_mxu_epilogue(F.FR, C, M, N),
+                       MX.plain_mxu_epilogue(F.FR, C, M, N))
+    assert torch.equal(got.cpu(), MX.mat_mul_mont(F.FR, A.cpu(), B.cpu()))
+
+
+def test_mxu_epilogue_at_maximal_C_on_card(cuda):
+    """The epilogue where every plane-pair sum is at its bound, 127^2 *
+    MAX_K, and on random sums below 2^31: its 32-bit accumulators. It is
+    built for Fr and refuses Fq."""
+    from zkfhe_tpu_torch.ops import mxu_field as MX
+    M, N = 3, 70
+    C = torch.full((2, 38 * M, 38 * N), 127 * 127 * MX.MAX_K,
+                   dtype=torch.int32, device=cuda)
+    C[1] = torch.randint(0, (1 << 31) - 1, C.shape[1:], device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(5))
+    assert torch.equal(MX.cuda_mxu_epilogue(F.FR, C, M, N),
+                       MX.plain_mxu_epilogue(F.FR, C, M, N))
+    with pytest.raises(ValueError, match="Fr"):
+        MX.cuda_mxu_epilogue(F.FQ, C, M, N)
+
+
+def test_mat_mul_mont_shared_operand_on_card(cuda):
+    """One operand shared along the batch (read with batch stride 0), the
+    other a non-contiguous view: the per-entry results."""
+    from zkfhe_tpu_torch.ops import mxu_field as MX
+    A = _rand(F.FR, 5 * 77, 31, cuda).reshape(20, 5, 77)
+    Bfull = _rand(F.FR, 3 * 77 * 12, 32, cuda).reshape(20, 3, 77, 12)
+    B = Bfull[..., ::2]  # (20, 3, 77, 6), strided columns
+    MX.reset_counts()
+    got = MX.mat_mul_mont(F.FR, A, B)
+    assert MX.LAUNCHES["planes7"] == 2 and got.shape == (20, 3, 5, 6)
+    for i in range(3):
+        assert torch.equal(got[:, i],
+                           MX.plain_mat_mul_mont(F.FR, A, B[:, i]))
+    lhs = MX.cuda_planes7(A[:, None].expand(20, 3, 5, 77), True)
+    assert torch.equal(lhs, MX.plain_planes7(A[:, None].expand(20, 3, 5, 77),
+                                             True))
+    with pytest.raises(ValueError):
+        MX.cuda_mxu_epilogue(F.FR, torch.zeros(1, 38, 76, dtype=torch.int32,
+                                               device=cuda)[:, :, ::2], 1, 1)
+    with pytest.raises(TypeError):
+        MX.cuda_plane_mm_s8(lhs.to(torch.int32), lhs)
 
 
 @pytest.fixture

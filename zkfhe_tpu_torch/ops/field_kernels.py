@@ -10,7 +10,9 @@ Each wrapper here stands in for one Pallas kernel of
     bfly      <- _bfly_kernel       (butterfly_pallas)
 
 On a CUDA tensor a wrapper launches the hand-written kernel of
-``csrc/field_kernels.cu`` or raises; it never falls back. On any other
+``csrc/field_kernels.cu`` or raises; it never falls back. The same library
+holds the modular matmul's kernels (``csrc/mxu_kernels.cu``), whose wrappers
+are in ``mxu_field.py``. On any other
 device (the CPU in tests) it runs the plain version, which is also the
 kernel's oracle on the card.
 
@@ -25,12 +27,14 @@ Every kernel launch adds one to ``LAUNCHES[name]``; nothing else does.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
 
@@ -199,13 +203,18 @@ def plain_bfly(field, u, v, tw):
 # The CUDA library: built with nvcc at first use, loaded with ctypes
 # ---------------------------------------------------------------------------
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "field_kernels.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc")
+# the library's sources; their shared header enters the digest too
+SOURCES = [os.path.join(_CSRC, f) for f in ("field_kernels.cu",
+                                            "mxu_kernels.cu")]
+HEADERS = [os.path.join(_CSRC, "field_device.cuh")]
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 BUILD_DIR = os.path.join(_ROOT, "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = _ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+                      "-v"]
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -223,27 +232,52 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"field_kernels-{digest}.so")
+    """build/field_kernels-<digest>.so, the digest over every source and
+    header and the flags, so that a change to any of them builds anew."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in SOURCES + HEADERS:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"field_kernels-{h.hexdigest()[:16]}.so")
 
 
 def build() -> str:
-    """Compile csrc/field_kernels.cu into build/ unless the same source was
-    built already. Returns the library path; the compiler's output (with
-    -Xptxas -v register counts) is kept in BUILD_LOG."""
+    """Compile csrc/field_kernels.cu and csrc/mxu_kernels.cu, one nvcc
+    process each, started together, and link them into one library in
+    build/, unless the same sources were built already. Returns the library
+    path; the compilers' output (with -Xptxas -v register counts) and each
+    step's seconds are kept in BUILD_LOG."""
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                          capture_output=True, text=True)
-    BUILD_LOG["cmd"] = " ".join(proc.args)
-    BUILD_LOG["output"] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+    objs = [f"{path[:-3]}.{os.getpid()}.{os.path.basename(src)[:-3]}.o"
+            for src in SOURCES]
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src]
+            for src, obj in zip(SOURCES, objs)]
+
+    def run(cmd):
+        t0 = time.time()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        return proc.stdout + proc.stderr, proc.returncode, time.time() - t0
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(cmds)) as pool:
+            outs = list(pool.map(run, cmds))
+        if all(rc == 0 for _, rc, _ in outs):
+            cmds.append([_nvcc(), *_ARCH, "-shared", "-o", tmp, *objs])
+            outs.append(run(cmds[-1]))
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    BUILD_LOG["cmd"] = "\n".join(" ".join(c) for c in cmds)
+    BUILD_LOG["output"] = "".join(out for out, _, _ in outs)
+    BUILD_LOG["seconds"] = {
+        step: round(dt, 3) for step, (_, _, dt) in zip(
+            [os.path.basename(src) for src in SOURCES] + ["link"], outs)}
+    if any(rc != 0 for _, rc, _ in outs):
+        raise RuntimeError(f"nvcc failed:\n{BUILD_LOG['cmd']}\n"
                            f"{BUILD_LOG['output']}")
     os.replace(tmp, path)
     return path
@@ -273,11 +307,24 @@ def load():
             if tuple(buf[:L]) != fld.p_limbs or buf[L] != fld.mu:
                 raise RuntimeError(f"field kernel constants differ from "
                                    f"{fld.name}")
+        # the modular matmul's kernels (wrappers in mxu_field.py)
+        lib.zk_planes7.argtypes = [vp] + [i64] * 10 + [vp, vp]
+        lib.zk_plane_mm_s8.argtypes = [vp, vp, vp] + [i64] * 4 + [vp]
+        lib.zk_mxu_epilogue.argtypes = [i32, vp, vp, i64, i64, vp]
+        lib.zk_mxu_params.argtypes = [ctypes.POINTER(ctypes.c_uint32)]
+        for name in ("zk_planes7", "zk_plane_mm_s8", "zk_mxu_epilogue",
+                     "zk_mxu_params"):
+            getattr(lib, name).restype = i32
+        buf = (ctypes.c_uint32 * L)()
+        lib.zk_mxu_params(buf)
+        if tuple(buf) != tuple(int(v) for v in F.int_to_limbs(
+                pow(2, F.LIMB_BITS * (2 * L - 1), F.FR.p))):
+            raise RuntimeError("matmul kernel constants differ from Fr")
         _lib = lib
         return lib
 
 
-def _field_index(field) -> int:
+def field_index(field) -> int:
     try:
         return _FIELD_INDEX[field.p]
     except KeyError:
@@ -317,7 +364,7 @@ def _lanes(x) -> int:
     return x.numel() // L
 
 
-def _stream():
+def stream():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
@@ -328,8 +375,8 @@ def cuda_binary(name, field, a, b):
     out = torch.empty_like(a)
     n = _lanes(a)
     fn = getattr(lib, "zk_" + name)
-    _launch(name, fn(_field_index(field), a.data_ptr(), b.data_ptr(),
-                     out.data_ptr(), n, _stream()), field, a)
+    _launch(name, fn(field_index(field), a.data_ptr(), b.data_ptr(),
+                     out.data_ptr(), n, stream()), field, a)
     return out
 
 
@@ -340,9 +387,9 @@ def cuda_butterfly(name, field, u, v, tw):
     hi, lo = torch.empty_like(u), torch.empty_like(u)
     n = _lanes(u)
     fn = getattr(lib, "zk_" + name)
-    _launch(name, fn(_field_index(field), u.data_ptr(), v.data_ptr(),
+    _launch(name, fn(field_index(field), u.data_ptr(), v.data_ptr(),
                      tw.data_ptr(), hi.data_ptr(), lo.data_ptr(), n,
-                     _stream()), field, u)
+                     stream()), field, u)
     return hi, lo
 
 

@@ -2,31 +2,32 @@
 
 ``mat_mul_mont(field, A, B)``: A (L, M, K) x B (L, K, N) -> (L, M, N) with
 out = (sum_k A_mk * B_kn) * R^-1 mod p, the contraction form of
-``field.mont_mul``; leading batch dims (L, *batch, M, K) are one launch.
-The prover uses it for every evaluation of the opened polynomials and for
-the SHPLONK folds, the batched prover with a proof axis.
+``field.mont_mul``; leading batch dims (L, *batch, M, K) are one launch of
+each kernel. The prover uses it for every evaluation of the opened
+polynomials and for the SHPLONK folds, the batched prover with a proof axis.
 
-On a CUDA tensor it runs the JAX package's limb-plane scheme:
+It runs the JAX package's limb-plane scheme, on a CUDA tensor as three
+hand-written kernels (csrc/mxu_kernels.cu), four launches a call:
 
-* each 260-bit operand (20 x 13-bit limbs) is split into 38 planes of 7
-  bits, stored as int8 (values 0..127);
-* ONE product computes every plane pair:
-  (M*38, K) x (K, 38*N) -> C[(m, u), (v, n)] = sum_k a_u[m, k] b_v[k, n],
-  each entry below 127^2 * K < 2^31 for K <= MAX_K. The JAX package left
-  this s8 x s8 -> s32 product to XLA's ``dot_general``, outside any Pallas
-  kernel; here it is the library's float64 ``torch.matmul`` on the same
-  planes, which is exact: every product and partial sum is an integer
-  below 2^31 < 2^53. (cuBLASLt's int8 product, ``torch._int_mm``, refuses
-  the SHPLONK fold's shape on the H100: 38 rows by 311,296 columns.);
-* C is split 16/16, plane pairs u + v = s are folded into 75 wide planes,
-  the wide planes are recomposed into 13-bit limbs, and the top is folded
-  with 2^507 mod p before the Montgomery reduction.
+* ``planes7`` (twice, once per operand): each 260-bit operand (20 x 13-bit
+  limbs) as 38 planes of 7 bits in int8 (values 0..127), laid out for the
+  product: lhs (Bt, M*38, Kp) with row (m, u), rhsT (Bt, 38*N, Kp) with row
+  (v, n), both K-contiguous, K padded with zero planes to Kp, a multiple of
+  32;
+* ``plane_mm_s8``: ONE int8 tensor-core product of every plane pair,
+  C[(m, u), (v, n)] = sum_k a_u[m, k] b_v[k, n] in int32, each entry below
+  127^2 * K < 2^31 for K <= MAX_K (the JAX package's s8 x s8 -> s32
+  ``dot_general``);
+* ``mxu_epilogue``: per output, C split 16/16, plane pairs u + v = s folded
+  into 75 wide planes, recomposed into 13-bit limbs, the top folded with
+  2^507 mod p, and REDC.
 
-Every step after the product is exact integer arithmetic, so the result is
-the canonical field element, limb for limb the JAX package's. On the CPU
-the wrapper runs the plain version, the ``mont_mul`` + ``tree_sum_mod``
-chain (``plain_mat_mul_mont``), which is also the oracle on the card.
-``mat_mul_mont_planes`` runs the plane scheme on any device.
+Every step is exact integer arithmetic, so the result is the canonical
+field element, limb for limb the JAX package's. Each kernel's plain
+version (``plain_planes7``, ``plain_plane_product``,
+``plain_mxu_epilogue``) sits beside its wrapper; ``mat_mul_mont_planes``
+composes them. On the CPU the wrapper runs ``plain_mat_mul_mont``, the
+``mont_mul`` + tree-sum chain, which is also the oracle on the card.
 """
 from __future__ import annotations
 
@@ -42,9 +43,12 @@ PBITS = 7
 NPLANES = -(-NLIMBS * LIMB_BITS // PBITS)
 NWIDE = 2 * NPLANES - 1
 MAX_K = (1 << 31) // (127 * 127)  # bound of the int32 plane product
+KP_ALIGN = 32  # the planes' K axis is padded to a multiple of this
 
-# launches of the plane product on the card since the last reset
-LAUNCHES = {"mat_mul_mont": 0}
+KERNELS = ("planes7", "plane_mm_s8", "mxu_epilogue")
+# calls of mat_mul_mont on the card, and launches of each of its kernels,
+# since the last reset
+LAUNCHES = {"mat_mul_mont": 0, **dict.fromkeys(KERNELS, 0)}
 
 _CONSTS = {}
 
@@ -62,7 +66,8 @@ def _const_tensor(key, vals, dtype, device, rows_of=None):
 
 
 def reset_counts():
-    LAUNCHES["mat_mul_mont"] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _bcast(key, vals, x):
@@ -153,21 +158,9 @@ def mont_reduce_wide(field: F.Field, t):
     return F.mont_reduce(field, total)
 
 
-def _pad_to(x, dim: int, size: int):
-    if x.shape[dim] >= size:
-        return x
-    shape = list(x.shape)
-    shape[dim] = size - x.shape[dim]
-    return torch.cat([x, torch.zeros(shape, dtype=x.dtype, device=x.device)],
-                     dim=dim)
-
-
-def _plane_product(lhs, rhs):
-    """(*batch, m, k) x (*batch, k, n) int8 planes -> their int32 product,
-    through the library's float64 matmul (exact: every partial sum is an
-    integer below 2^31); one call for the whole batch."""
-    return torch.matmul(lhs.to(torch.float64),
-                        rhs.to(torch.float64)).to(torch.int32)
+def padded_k(k: int) -> int:
+    """The planes' K axis: k rounded up to a multiple of KP_ALIGN."""
+    return -(-k // KP_ALIGN) * KP_ALIGN
 
 
 def _common_batch(A, B):
@@ -183,15 +176,54 @@ def _common_batch(A, B):
     return batch, lift(A), lift(B)
 
 
-def mat_mul_mont_planes(field: F.Field, A, B):
-    """The limb-plane form of mat_mul_mont, on any device."""
+def _operands(A, B):
+    """(batch, A (L, Bt, M, K), B (L, Bt, K, N), M, K, N): the batch dims
+    broadcast and flattened into one (a view where strides allow, so an
+    operand shared along the batch keeps stride 0 there)."""
     batch, A, B = _common_batch(A, B)
-    L, (M, Kd), (K2, N) = A.shape[0], A.shape[-2:], B.shape[-2:]
-    assert L == NLIMBS and K2 == Kd and Kd <= MAX_K
-    # rows (m, u) and columns (v, n) of each plane product
-    lhs = to_planes7(A).movedim(0, -2).reshape(batch + (M * NPLANES, Kd))
-    rhs = to_planes7(B).movedim(0, -2).reshape(batch + (Kd, NPLANES * N))
-    C = _plane_product(lhs, rhs).reshape(batch + (M, NPLANES, NPLANES, N))
+    (M, Kd), (K2, N) = A.shape[-2:], B.shape[-2:]
+    if A.shape[0] != NLIMBS or B.shape[0] != NLIMBS or K2 != Kd:
+        raise ValueError(f"mat_mul_mont: shapes {tuple(A.shape)} x "
+                         f"{tuple(B.shape)} do not chain over {NLIMBS} limbs")
+    if Kd > MAX_K:
+        raise ValueError(f"mat_mul_mont: K = {Kd} > MAX_K = {MAX_K}, the "
+                         f"int32 bound of the plane product")
+    return (batch, A.reshape(NLIMBS, -1, M, Kd),
+            B.reshape(NLIMBS, -1, Kd, N), M, Kd, N)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of the three kernels
+# ---------------------------------------------------------------------------
+
+def plain_planes7(X, lhs: bool):
+    """planes7's plain version. X (L, Bt, M, K) -> lhs (Bt, M*38, Kp), row
+    m*38 + u; or (lhs=False) X (L, Bt, K, N) -> rhsT (Bt, 38*N, Kp), row
+    v*N + n. int8, K-contiguous, columns K..Kp-1 zero."""
+    P = to_planes7(X)  # (38, Bt, ., .)
+    P = P.permute(1, 2, 0, 3) if lhs else P.permute(1, 0, 3, 2)
+    Kd = P.shape[-1]
+    P = P.reshape(P.shape[0], -1, Kd)
+    pad = torch.zeros(P.shape[:2] + (padded_k(Kd) - Kd,), dtype=P.dtype,
+                      device=P.device)
+    return torch.cat([P, pad], dim=2)
+
+
+def plain_plane_product(lhs, rhsT):
+    """plane_mm_s8's plain version: (Bt, MR, Kp) . (Bt, NC, Kp)^T -> int32
+    (Bt, MR, NC), through a float64 matmul, which is exact: every product
+    and partial sum is an integer below 2^31 < 2^53."""
+    return torch.matmul(lhs.to(torch.float64),
+                        rhsT.to(torch.float64).transpose(1, 2)).to(
+                            torch.int32)
+
+
+def plain_mxu_epilogue(field: F.Field, C, M: int, N: int):
+    """mxu_epilogue's plain version: C (Bt, M*38, 38*N) int32 plane-pair
+    sums -> (L, Bt, M, N) canonical limbs of (sum_{u,v} C[m,u,v,n]
+    2^(7(u+v))) R^-1 mod p."""
+    Bt = C.shape[0]
+    C = C.reshape(Bt, M, NPLANES, NPLANES, N)
     # split before the pair fold: fold sums of raw C would pass 2^31
     # (C is non-negative: every plane value is in [0, 127])
     C_lo = C & 0xFFFF
@@ -200,16 +232,113 @@ def mat_mul_mont_planes(field: F.Field, A, B):
     # plane pair (u, v) lands in wide plane u + v
     pair = _const_tensor("pair", [u + v for u in range(NPLANES)
                                   for v in range(NPLANES)],
-                         torch.int64, A.device)
+                         torch.int64, C.device)
 
-    def fold(X):  # (*batch, M, P, P, N) -> (S, *batch, M, N), S = 2P-1
-        t = torch.zeros((NWIDE,) + batch + (M, N), dtype=X.dtype,
-                        device=X.device)
+    def fold(X):  # (Bt, M, P, P, N) -> (S, Bt, M, N), S = 2P-1
+        t = torch.zeros((NWIDE, Bt, M, N), dtype=X.dtype, device=X.device)
         return t.index_add_(0, pair, X.reshape(
-            batch + (M, NPLANES * NPLANES, N)).movedim(-2, 0))
+            Bt, M, NPLANES * NPLANES, N).movedim(-2, 0))
 
-    limbs = _wide_planes_to_limbs(fold(C_lo), fold(C_hi))  # (NL, *b, M, N)
+    limbs = _wide_planes_to_limbs(fold(C_lo), fold(C_hi))  # (NL, Bt, M, N)
     return mont_reduce_wide(field, limbs)
+
+
+def mat_mul_mont_planes(field: F.Field, A, B):
+    """The limb-plane scheme with the three kernels' plain versions, on any
+    device."""
+    batch, A, B, M, _, N = _operands(A, B)
+    C = plain_plane_product(plain_planes7(A, True), plain_planes7(B, False))
+    return plain_mxu_epilogue(field, C, M, N).reshape(
+        (NLIMBS,) + batch + (M, N))
+
+
+# ---------------------------------------------------------------------------
+# The kernels' wrappers (csrc/mxu_kernels.cu, in field_kernels' library)
+# ---------------------------------------------------------------------------
+
+def _check_cuda(name, x, dtype, ndim):
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
+    if x.dim() != ndim or x.numel() == 0:
+        raise ValueError(f"{name}: expected a non-empty {ndim}-d tensor, got "
+                         f"shape {tuple(x.shape)}")
+    if not x.is_cuda or x.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: operands must be on the current CUDA "
+                         f"device, got {x.device}")
+
+
+def _launched(name, rc):
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
+    LAUNCHES[name] += 1
+
+
+def cuda_planes7(X, lhs: bool):
+    """Launch zk_planes7: plain_planes7's function, reading X through its
+    strides (a batch axis may have stride 0)."""
+    _check_cuda("planes7", X, torch.int32, 4)
+    if X.shape[0] != NLIMBS:
+        raise ValueError(f"planes7: leading axis must be {NLIMBS} limbs, got "
+                         f"{tuple(X.shape)}")
+    Bt = X.shape[1]
+    if lhs:  # (L, Bt, M, K): rows m, row (m, u) = m*38 + u
+        R, Kd, sr, sk, rs, us = (X.shape[2], X.shape[3], X.stride(2),
+                                 X.stride(3), NPLANES, 1)
+    else:  # (L, Bt, K, N): rows n, row (v, n) = v*N + n
+        Kd, R, sk, sr = X.shape[2], X.shape[3], X.stride(2), X.stride(3)
+        rs, us = 1, R
+    if Kd > MAX_K:
+        raise ValueError(f"planes7: K = {Kd} > MAX_K = {MAX_K}")
+    lib = K.load()
+    out = torch.empty((Bt, NPLANES * R, padded_k(Kd)), dtype=torch.int8,
+                      device=X.device)
+    _launched("planes7", lib.zk_planes7(
+        X.data_ptr(), X.stride(0), X.stride(1), sr, sk, Bt, R, Kd,
+        out.shape[2], rs, us, out.data_ptr(), K.stream()))
+    return out
+
+
+def cuda_plane_mm_s8(lhs, rhsT):
+    """Launch zk_plane_mm_s8: (Bt, MR, Kp) . (Bt, NC, Kp)^T -> int32
+    (Bt, MR, NC) on the int8 tensor cores."""
+    for x in (lhs, rhsT):
+        _check_cuda("plane_mm_s8", x, torch.int8, 3)
+        if not x.is_contiguous():
+            raise ValueError("plane_mm_s8: planes must be contiguous")
+    (Bt, MR, Kp), (Bt2, NC, Kp2) = lhs.shape, rhsT.shape
+    if (Bt, Kp) != (Bt2, Kp2) or Kp % KP_ALIGN or NC % 2:
+        raise ValueError(f"plane_mm_s8: shapes {tuple(lhs.shape)} and "
+                         f"{tuple(rhsT.shape)} (K a multiple of {KP_ALIGN}, "
+                         f"columns even)")
+    if Kp > padded_k(MAX_K) or lhs.device != rhsT.device:
+        raise ValueError("plane_mm_s8: K past the int32 bound, or operands "
+                         "on different devices")
+    lib = K.load()
+    C = torch.empty((Bt, MR, NC), dtype=torch.int32, device=lhs.device)
+    _launched("plane_mm_s8", lib.zk_plane_mm_s8(
+        lhs.data_ptr(), rhsT.data_ptr(), C.data_ptr(), Bt, MR, NC, Kp,
+        K.stream()))
+    return C
+
+
+def cuda_mxu_epilogue(field: F.Field, C, M: int, N: int):
+    """Launch zk_mxu_epilogue: plain_mxu_epilogue's function (the kernel is
+    built for Fr, the field of every matmul of the prover)."""
+    _check_cuda("mxu_epilogue", C, torch.int32, 3)
+    if field.p != F.FR.p:
+        raise ValueError(f"mxu_epilogue: the CUDA kernel is built for Fr, "
+                         f"not {field.name}")
+    if not C.is_contiguous() or C.shape[1:] != (NPLANES * M, NPLANES * N):
+        raise ValueError(f"mxu_epilogue: C must be a contiguous (Bt, "
+                         f"{NPLANES * M}, {NPLANES * N}), got "
+                         f"{tuple(C.shape)}")
+    lib = K.load()
+    Bt = C.shape[0]
+    out = torch.empty((NLIMBS, Bt, M, N), dtype=F.DTYPE, device=C.device)
+    _launched("mxu_epilogue", lib.zk_mxu_epilogue(
+        K.field_index(field), C.data_ptr(), out.data_ptr(), Bt * M * N, N,
+        K.stream()))
+    return out
 
 
 def _plain_tree_sum(field, x):
@@ -256,12 +385,15 @@ def plain_mat_mul_mont(field: F.Field, A, B):
 
 def mat_mul_mont(field: F.Field, A, B):
     """A (L, *batch, M, K) x B (L, *batch, K, N) -> (L, *batch, M, N) =
-    (sum_k A B) R^-1 mod p; batch dims broadcast, and a batch is one
-    launch of the plane product."""
+    (sum_k A B) R^-1 mod p; batch dims broadcast. On the card: the planes
+    of A and of B, their product and the epilogue, one launch each for the
+    whole batch."""
     if A.is_cuda or B.is_cuda:
-        out = mat_mul_mont_planes(field, A, B)
+        batch, A, B, M, _, N = _operands(A, B)
+        C = cuda_plane_mm_s8(cuda_planes7(A, True), cuda_planes7(B, False))
+        out = cuda_mxu_epilogue(field, C, M, N)
         LAUNCHES["mat_mul_mont"] += 1
-        return out
+        return out.reshape((NLIMBS,) + batch + (M, N))
     return plain_mat_mul_mont(field, A, B)
 
 
