@@ -17,12 +17,16 @@ Phases, each printed with its time; any failure exits non-zero:
    (20, 8192, 5) and its SHPLONK fold shape (20, 1, 64) x (20, 64, 8192),
    at the batch's shapes, the same with a proof axis of 8 after the limb
    axis, and at k=15's, n = 32768 in place of 8192: each of
-   ``mxu_field.mat_mul_mont``'s kernels (``zk_planes7`` of A and of B,
-   ``zk_plane_mm_s8``, ``zk_mxu_epilogue``) against its plain version on
-   the same inputs, the epilogue also on a maximal C (every plane-pair sum
-   127^2 * MAX_K), and ``mat_mul_mont`` against its plain mont_mul +
-   tree-sum chain: exact equality; then each timed beside its plain
-   version, and the float64 ``torch.matmul`` of the same planes;
+   ``mxu_field.mat_mul_mont``'s kernels against its plain version on the
+   same inputs (``zk_planes7`` of A and of B against ``plain_planes7``,
+   ``zk_plane_mm_redc`` against ``mat_mul_mont_planes`` at the wrapper's
+   split of K), the fused kernel also at near-maximal operands (every limb
+   8191 at K = MAX_K, 2 x 3 outputs, K split), and ``mat_mul_mont``
+   against its plain mont_mul + tree-sum chain: exact equality; then each
+   timed beside its plain version with CUDA events, the two kernels also
+   as device time from ``torch.profiler``'s ``key_averages()``, and
+   ``torch._int_mm`` of the same planes where cuBLASLt takes the shape
+   (the product alone, the narrow side padded to a multiple of 8);
 5. mock: ``cli.main`` mock of data/bfv/bfv.in at k=13: 0 violations, 5121
    public values, cell count and trace digest equal to the JAX package's
    (tests/fixtures/torch_reference_k13.json);
@@ -107,8 +111,8 @@ Phases, each printed with its time; any failure exits non-zero:
    prove and stream (each must be > 0 for mont_mul, add, sub and
    bfly_dif, except bfly_dif in the keccak phase, whose circuit runs no
    NTT; bfly's launches are those of its check in phase 3; on every path
-   that calls mat_mul_mont, planes7 must launch twice and plane_mm_s8 and
-   mxu_epilogue once per call), its largest mismatch over phases 3, 4 and
+   that calls mat_mul_mont, planes7 must launch twice and plane_mm_redc
+   once per call), its largest mismatch over phases 3, 4 and
    17, its time, its plain version's time and its bound (the matmul's
    kernels at their largest launch of phase 4).
 
@@ -189,10 +193,10 @@ MATMUL_REPLACES = "zkfhe_tpu/ops/mxu_field.py:130"
 MXU_SOURCE = "zkfhe_tpu_torch/csrc/mxu_kernels.cu"
 MXU_KERNELS = {
     "planes7": "zkfhe_tpu/ops/mxu_field.py:48",
-    "plane_mm_s8": "zkfhe_tpu/ops/mxu_field.py:142",
-    "mxu_epilogue": "zkfhe_tpu/ops/mxu_field.py:146",
+    "plane_mm_redc": "zkfhe_tpu/ops/mxu_field.py:142-159",
 }
 EPILOGUE_OPS = 8550
+
 # the batched witness phase: proofs in one circuit run, and the per-proof
 # run pairs (phase 0 + full) timed beside it and scaled to WITGEN_B
 WITGEN_B = 64
@@ -349,27 +353,68 @@ def time_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes, ops, rate):
-    """(bound ms, what bounds it): the larger of bytes over the HBM rate
-    and operations over `rate`."""
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / rate * 1e3
+def bound(nbytes, ops, rate, ops32=0):
+    """(bound ms, what bounds it): the largest of bytes over the HBM rate,
+    operations over `rate` and 32-bit integer operations over INT32_OPS."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = max(ops / rate, ops32 / INT32_OPS) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-@phase("matmul and its three kernels vs plain at the prover's shapes: "
+def device_ms(fn, kernel, reps=10):
+    """Device time of one launch of the CUDA function whose name contains
+    `kernel`, from torch.profiler's key_averages() over `reps` calls of
+    fn, or None where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if kernel in ev.key:
+            total += max(getattr(ev, key, 0.0) or 0.0 for key in (
+                "device_time_total", "self_device_time_total",
+                "cuda_time_total"))
+            count += ev.count
+    return total / count / 1e3 if count and total else None
+
+
+def int_mm_ms(lhs, rhs):
+    """torch._int_mm of one batch entry's planes, (MR, Kp) x (Kp, NC) with
+    the narrow side padded to a multiple of 8 (the plane product alone,
+    which the port never calls), or the error where cuBLASLt refuses."""
+    a, b = lhs[0], rhs[0]
+    if a.shape[0] < b.shape[0]:
+        a, b = b, a
+    b = torch.cat([b, b.new_zeros((-b.shape[0] % 8, b.shape[1]))])
+    try:
+        torch._int_mm(a, b.t())
+        torch.cuda.synchronize()
+        return time_ms(lambda: torch._int_mm(a, b.t()), reps=10), None
+    except RuntimeError as e:  # cuBLASLt's refusal is reported, not fatal
+        return None, str(e).splitlines()[0][:120]
+
+
+@phase("matmul and its two kernels vs plain at the prover's shapes: "
        "check and time")
 def check_matmul(F, MX, dev):
     """At each of the prover's mat_mul_mont shapes: zk_planes7 (for A and
-    for B), zk_plane_mm_s8 and zk_mxu_epilogue against their plain versions
-    on the same inputs, the epilogue also on a maximal C (every plane-pair
-    sum 127^2 * MAX_K), and mat_mul_mont against its plain chain, all
-    exactly; then each timed beside its plain version, and the float64
-    torch.matmul of the same planes (the product's library yardstick, which
-    the port never calls). Returns (per-shape results, each kernel's
+    for B) against plain_planes7, zk_plane_mm_redc against
+    mat_mul_mont_planes at the wrapper's split of K, and mat_mul_mont
+    against its plain chain, all exactly; the fused kernel also at
+    near-maximal operands with K split. Then each timed beside its plain
+    version with CUDA events (which measure the wrappers' host time where
+    a launch is shorter) and, for the two kernels, as the profiler's device
+    time, and torch._int_mm of the same planes (the product's yardstick,
+    which the port never calls). Returns (per-shape results, each kernel's
     largest mismatch)."""
     rng = np.random.default_rng(2)
     out = {}
     errs = dict.fromkeys(MX.LAUNCHES, 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def held(name, label, got, want):
         err = max_err((got,), (want,))
@@ -377,6 +422,23 @@ def check_matmul(F, MX, dev):
         if err:
             FAILURES.append(f"{name} disagrees with its plain version at "
                             f"{label}")
+
+    # every limb 8191 at K = MAX_K: the plane-pair sums near 127^2 * MAX_K,
+    # the raw fold sums past 2^32, K split into many ranges
+    M, Kd, N = 2, MX.MAX_K, 3
+    A = torch.full((20, 1, M, Kd), 8191, dtype=torch.int32, device=dev)
+    B = torch.full((20, 1, Kd, N), 8191, dtype=torch.int32, device=dev)
+    _, splits = MX.split_plan(1, M, N, MX.padded_k(Kd), sms)
+    if splits < 2:
+        FAILURES.append("the near-maximal matmul check does not split K")
+    held("plane_mm_redc", f"near-maximal operands, K = {Kd}, {splits} "
+         f"splits", MX.cuda_plane_mm_redc(
+             F.FR, MX.cuda_planes7(A, True), MX.cuda_planes7(B, False),
+             M, N), MX.mat_mul_mont_planes(F.FR, A, B, splits))
+    print(f"[smoke]   plane_mm_redc at near-maximal operands (K = {Kd}, "
+          f"{splits} splits): max |kernel - plain| = "
+          f"{errs['plane_mm_redc']}")
+    del A, B
 
     for label, (bt, M, Kd, N) in MATMUL_SHAPES.items():
         shape = bt + (M, Kd, N)
@@ -389,66 +451,68 @@ def check_matmul(F, MX, dev):
         lhs, rhs = MX.cuda_planes7(A4, True), MX.cuda_planes7(B4, False)
         held("planes7", f"{label} (A)", lhs, MX.plain_planes7(A4, True))
         held("planes7", f"{label} (B)", rhs, MX.plain_planes7(B4, False))
-        C = MX.cuda_plane_mm_s8(lhs, rhs)
-        held("plane_mm_s8", label, C, MX.plain_plane_product(lhs, rhs))
-        held("mxu_epilogue", label, MX.cuda_mxu_epilogue(F.FR, C, M, N),
-             MX.plain_mxu_epilogue(F.FR, C, M, N))
-        c_max = torch.full_like(C, 127 * 127 * MX.MAX_K)
-        held("mxu_epilogue", f"{label}, maximal C",
-             MX.cuda_mxu_epilogue(F.FR, c_max, M, N),
-             MX.plain_mxu_epilogue(F.FR, c_max, M, N))
-        del c_max
+        MR, NC, Kp = MX.NPLANES * M, MX.NPLANES * N, MX.padded_k(Kd)
+        _, splits = MX.split_plan(nb, M, N, Kp, sms)
+        held("plane_mm_redc", label,
+             MX.cuda_plane_mm_redc(F.FR, lhs, rhs, M, N),
+             MX.mat_mul_mont_planes(F.FR, A4, B4, splits))
         torch.cuda.synchronize()
 
-        MR, NC, Kp = MX.NPLANES * M, MX.NPLANES * N, MX.padded_k(Kd)
-        runs = {  # name: (kernel, plain version, bytes, ops, peak rate)
+        runs = {  # name: (kernel, plain version, bytes, ops, peak rate,
+            #              32-bit ops, CUDA function)
             "mat_mul_mont": (
                 lambda: MX.mat_mul_mont(F.FR, A, B),
                 lambda: MX.plain_mat_mul_mont(F.FR, A, B),
                 nb * (M * Kd + Kd * N + M * N) * 80,
-                nb * 2 * MR * Kd * NC, INT8_TC_OPS),
+                nb * 2 * MR * Kd * NC, INT8_TC_OPS, 0, None),
             "planes7 (A)": (
                 lambda: MX.cuda_planes7(A4, True),
                 lambda: MX.plain_planes7(A4, True),
                 nb * M * Kd * 80 + nb * MR * Kp, nb * M * Kd * 152,
-                INT32_OPS),
+                INT32_OPS, 0, "k_planes7"),
             "planes7 (B)": (
                 lambda: MX.cuda_planes7(B4, False),
                 lambda: MX.plain_planes7(B4, False),
                 nb * Kd * N * 80 + nb * NC * Kp, nb * Kd * N * 152,
-                INT32_OPS),
-            "plane_mm_s8": (
-                lambda: MX.cuda_plane_mm_s8(lhs, rhs),
-                lambda: MX.plain_plane_product(lhs, rhs),
-                nb * (MR + NC) * Kp + nb * MR * NC * 4,
-                nb * 2 * MR * NC * Kd, INT8_TC_OPS),
-            "mxu_epilogue": (
-                lambda: MX.cuda_mxu_epilogue(F.FR, C, M, N),
-                lambda: MX.plain_mxu_epilogue(F.FR, C, M, N),
-                nb * MR * NC * 4 + nb * M * N * 80,
-                nb * M * N * EPILOGUE_OPS, INT32_OPS),
+                INT32_OPS, 0, "k_planes7"),
+            "plane_mm_redc": (
+                lambda: MX.cuda_plane_mm_redc(F.FR, lhs, rhs, M, N),
+                lambda: MX.plain_plane_mm_redc(F.FR, lhs, rhs, M, N,
+                                               splits),
+                nb * (MR + NC) * Kp + nb * M * N * 80,
+                nb * 2 * MR * NC * Kd, INT8_TC_OPS,
+                nb * M * N * EPILOGUE_OPS, "k_plane_mm_redc"),
         }
         res = {}
-        for name, (fn, plain, nbytes, ops, rate) in runs.items():
-            b_ms, b_by = bound(nbytes, ops, rate)
+        for name, (fn, plain, nbytes, ops, rate, ops32, cu) in runs.items():
+            b_ms, b_by = bound(nbytes, ops, rate, ops32)
             res[name] = dict(ms=time_ms(fn, reps=10),
                              plain_ms=time_ms(plain, reps=2),
                              bound_ms=b_ms, bound_by=b_by)
-        lhs64 = lhs.to(torch.float64)
-        rhs64 = rhs.to(torch.float64).transpose(1, 2)
-        library_ms = time_ms(lambda: torch.matmul(lhs64, rhs64), reps=10)
-        del lhs64, rhs64
+            if cu:
+                res[name]["device_ms"] = device_ms(fn, cu, reps=20)
+        res["plane_mm_redc"]["splits"] = splits
+        if nb == 1:
+            library_ms, refused = int_mm_ms(lhs, rhs)
+        else:
+            library_ms, refused = None, "no single int8 call for a batch"
         out[label] = dict(shape=list(shape), library_ms=library_ms,
+                          **({"int_mm_refused": refused} if refused else {}),
                           **res.pop("mat_mul_mont"), kernels=res)
+        yard = (f"{library_ms:.4f} ms" if library_ms is not None
+                else f"refused ({refused})")
         print(f"[smoke]   mat_mul_mont {label} {shape}: "
               f"{out[label]['ms']:.4f} ms, plain {out[label]['plain_ms']:.3f}"
               f" ms, bound {out[label]['bound_ms']:.4f} ms "
-              f"({out[label]['bound_by']}); float64 torch.matmul of the "
-              f"planes {library_ms:.4f} ms")
+              f"({out[label]['bound_by']}); torch._int_mm of the planes "
+              f"{yard}")
         for name, r in res.items():
-            print(f"[smoke]     {name:13s} {r['ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
-                  f"({r['bound_by']})")
+            dms = r.get("device_ms")
+            print(f"[smoke]     {name:13s} {r['ms']:.4f} ms"
+                  + (f" (profiler device {dms:.4f} ms)" if dms else "")
+                  + f", plain {r['plain_ms']:.3f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        del lhs, rhs
     print(f"[smoke]   max |kernel - plain| over the shapes: {errs}")
     return out, errs
 
@@ -1363,15 +1427,14 @@ def main():
         for k in want:
             if c[k] == 0:
                 FAILURES.append(f"kernel {k} never launched in {ph}")
-    # every mat_mul_mont call on a path is four launches: the planes of
-    # each operand, the product, the epilogue
+    # every mat_mul_mont call on a path is three launches: the planes of
+    # each operand, the fused product and epilogue
     for ph, c in (("prove", c_pv), ("prove_batch", c_b),
                   ("prove_stream", c_s), ("k=15", c_k15),
                   ("no-Lagrange", c_nolag), ("mesh prove", c_mesh),
                   ("mesh stream", c_mst)):
         calls = c["mat_mul_mont"]
-        want = {"planes7": 2 * calls, "plane_mm_s8": calls,
-                "mxu_epilogue": calls}
+        want = {"planes7": 2 * calls, "plane_mm_redc": calls}
         if calls == 0 or any(c[k] != v for k, v in want.items()):
             FAILURES.append(f"{ph}: {calls} mat_mul_mont calls launched "
                             f"{ {k: c[k] for k in want} }, want {want}")
@@ -1396,8 +1459,8 @@ def main():
             print(f"[smoke] FAILED: {f}", file=sys.stderr)
         sys.exit(1)
     print(json.dumps({"matmul": dict(
-        name="mat_mul_mont", route="cuda: zk_planes7 (x2), zk_plane_mm_s8, "
-        "zk_mxu_epilogue", source="zkfhe_tpu_torch/ops/mxu_field.py, "
+        name="mat_mul_mont", route="cuda: zk_planes7 (x2), zk_plane_mm_redc",
+        source="zkfhe_tpu_torch/ops/mxu_field.py, "
         + MXU_SOURCE, replaces=MATMUL_REPLACES, max_abs_err=mx_errs[
             "mat_mul_mont"], launches=c_pv["mat_mul_mont"],
         launches_batch=c_b["mat_mul_mont"],
@@ -1430,8 +1493,8 @@ def main():
         max_abs_err=errs[k], library_ms=None, **timing[k])
         for k in KERNELS]}
     # mat_mul_mont's kernels at their largest launch (most bound time) over
-    # the prover's shapes; the product's library_ms is the float64
-    # torch.matmul of the same planes
+    # the prover's shapes; the fused kernel's library_ms is torch._int_mm
+    # of the same planes there (the product alone; null for a batch)
     for k in MX.KERNELS:
         label, sub, best = max(
             ((lab, sub, r) for lab, m in matmul.items()
@@ -1447,7 +1510,7 @@ def main():
             launches_k15=c_k15[k], launches_nolag=c_nolag[k],
             launches_witgen64=c_w64[k], launches_mesh=c_mesh[k],
             launches_mesh_stream=c_mst[k], max_abs_err=mx_errs[k],
-            library_ms=(matmul[label]["library_ms"] if k == "plane_mm_s8"
+            library_ms=(matmul[label]["library_ms"] if k == "plane_mm_redc"
                         else None), at=f"{label} {sub}".strip(),
             shape=matmul[label]["shape"], **best))
     print(json.dumps(line))

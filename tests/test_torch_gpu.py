@@ -1,5 +1,5 @@
 """Card-only checks of the port's CUDA kernels (the field kernels and
-mat_mul_mont's three) against their plain versions, and of the device mesh
+mat_mul_mont's two) against their plain versions, and of the device mesh
 over distinct cards. They skip without a
 CUDA device (the mesh checks without two); on a machine with one:
 
@@ -55,16 +55,19 @@ def test_wrappers_launch_on_card_and_count(cuda):
         K.cuda_binary("add", F.FR, x, x.cpu())
 
 
-# (Bt, M, K, N): ragged plane rows M*38 and columns 38*N against the
-# product's 64 x 64 tiles, K below, at and past its 32 and 128-byte steps
+# (Bt, M, K, N): ragged element counts against plane_mm_redc's tiles of
+# 64 x 2 elements (both operand roles), K below, at and past its 32-byte
+# alignment and its 128-byte chunks, and the evaluations' K with split-K
 MXU_SHAPES = [(1, 1, 13, 300), (2, 3, 40, 5), (1, 7, 64, 33),
               (3, 2, 161, 9), (1, 2, 8192, 5)]
 
 
 @pytest.mark.parametrize("Bt,M,Kd,N", MXU_SHAPES)
 def test_mat_mul_mont_on_card_matches_plain(cuda, Bt, M, Kd, N):
-    """Each of mat_mul_mont's kernels against its plain version, and the
-    call against the plain chain, with four launches per call."""
+    """Each of mat_mul_mont's kernels against its plain version (the fused
+    kernel at the wrapper's split of K, at the fewest ranges K allows and,
+    where K has more 128-byte chunks, at one more), and the call against
+    the plain chain, with three launches per call."""
     from zkfhe_tpu_torch.ops import mxu_field as MX
     seed = Bt * 10007 + M * 101 + Kd + N
     A = _rand(F.FR, Bt * M * Kd, seed, cuda).reshape(20, Bt, M, Kd)
@@ -72,37 +75,44 @@ def test_mat_mul_mont_on_card_matches_plain(cuda, Bt, M, Kd, N):
     MX.reset_counts()
     got = MX.mat_mul_mont(F.FR, A, B)
     assert MX.LAUNCHES == {"mat_mul_mont": 1, "planes7": 2,
-                           "plane_mm_s8": 1, "mxu_epilogue": 1}
+                           "plane_mm_redc": 1}
     assert torch.equal(got, MX.plain_mat_mul_mont(F.FR, A, B))
     lhs, rhs = MX.cuda_planes7(A, True), MX.cuda_planes7(B, False)
     assert torch.equal(lhs, MX.plain_planes7(A, True))
     assert torch.equal(rhs, MX.plain_planes7(B, False))
-    C = MX.cuda_plane_mm_s8(lhs, rhs)
-    assert torch.equal(C, MX.plain_plane_product(lhs, rhs))
-    assert torch.equal(MX.cuda_mxu_epilogue(F.FR, C, M, N),
-                       MX.plain_mxu_epilogue(F.FR, C, M, N))
+    chunks = -(-lhs.shape[-1] // MX.KSTEP)
+    least = -(-chunks // MX.MAX_CHUNKS)
+    for S in sorted({least, min(chunks, least + 1), MX.split_plan(
+            Bt, M, N, lhs.shape[-1], MX._sms(cuda))[1]}):
+        assert torch.equal(MX.cuda_plane_mm_redc(F.FR, lhs, rhs, M, N, S),
+                           MX.plain_plane_mm_redc(F.FR, lhs, rhs, M, N, S)), S
     assert torch.equal(got.cpu(), MX.mat_mul_mont(F.FR, A.cpu(), B.cpu()))
 
 
-def test_mxu_epilogue_at_maximal_C_on_card(cuda):
-    """The epilogue where every plane-pair sum is at its bound, 127^2 *
-    MAX_K, and on random sums below 2^31: its 32-bit accumulators. It is
-    built for Fr and refuses Fq."""
+def test_plane_mm_redc_at_near_maximal_operands_on_card(cuda):
+    """Every limb 8191 at K = MAX_K, so that every plane-pair sum is near
+    its bound 127^2 * MAX_K and the raw fold sums pass 2^32, with K split
+    (a few outputs): the fused kernel against the plain scheme. Built for
+    Fr, it refuses Fq."""
     from zkfhe_tpu_torch.ops import mxu_field as MX
-    M, N = 3, 70
-    C = torch.full((2, 38 * M, 38 * N), 127 * 127 * MX.MAX_K,
-                   dtype=torch.int32, device=cuda)
-    C[1] = torch.randint(0, (1 << 31) - 1, C.shape[1:], device=cuda,
-                         generator=torch.Generator(cuda).manual_seed(5))
-    assert torch.equal(MX.cuda_mxu_epilogue(F.FR, C, M, N),
-                       MX.plain_mxu_epilogue(F.FR, C, M, N))
+    M, Kd, N = 2, MX.MAX_K, 3
+    A = torch.full((20, 1, M, Kd), 8191, dtype=torch.int32, device=cuda)
+    B = torch.full((20, 1, Kd, N), 8191, dtype=torch.int32, device=cuda)
+    lhs, rhs = MX.cuda_planes7(A, True), MX.cuda_planes7(B, False)
+    _, S = MX.split_plan(1, M, N, lhs.shape[-1], MX._sms(cuda))
+    assert S > 1
+    MX.reset_counts()
+    got = MX.cuda_plane_mm_redc(F.FR, lhs, rhs, M, N)
+    assert MX.LAUNCHES["plane_mm_redc"] == 1
+    assert torch.equal(got, MX.mat_mul_mont_planes(F.FR, A, B))
     with pytest.raises(ValueError, match="Fr"):
-        MX.cuda_mxu_epilogue(F.FQ, C, M, N)
+        MX.cuda_plane_mm_redc(F.FQ, lhs, rhs, M, N)
 
 
 def test_mat_mul_mont_shared_operand_on_card(cuda):
-    """One operand shared along the batch (read with batch stride 0), the
-    other a non-contiguous view: the per-entry results."""
+    """One operand shared along the batch (its planes made once and read
+    with batch stride 0), the other a non-contiguous view: the per-entry
+    results; then the fused kernel on planes of batch 1 against 3."""
     from zkfhe_tpu_torch.ops import mxu_field as MX
     A = _rand(F.FR, 5 * 77, 31, cuda).reshape(20, 5, 77)
     Bfull = _rand(F.FR, 3 * 77 * 12, 32, cuda).reshape(20, 3, 77, 12)
@@ -116,11 +126,13 @@ def test_mat_mul_mont_shared_operand_on_card(cuda):
     lhs = MX.cuda_planes7(A[:, None].expand(20, 3, 5, 77), True)
     assert torch.equal(lhs, MX.plain_planes7(A[:, None].expand(20, 3, 5, 77),
                                              True))
+    rhs = MX.cuda_planes7(B, False)
+    assert torch.equal(MX.cuda_plane_mm_redc(F.FR, lhs[:1], rhs, 5, 6),
+                       MX.plain_plane_mm_redc(F.FR, lhs, rhs, 5, 6))
     with pytest.raises(ValueError):
-        MX.cuda_mxu_epilogue(F.FR, torch.zeros(1, 38, 76, dtype=torch.int32,
-                                               device=cuda)[:, :, ::2], 1, 1)
+        MX.cuda_plane_mm_redc(F.FR, lhs[:2], rhs, 5, 6)
     with pytest.raises(TypeError):
-        MX.cuda_plane_mm_s8(lhs.to(torch.int32), lhs)
+        MX.cuda_plane_mm_redc(F.FR, lhs.to(torch.int32), rhs, 5, 6)
 
 
 @pytest.fixture

@@ -3,7 +3,7 @@ JAX package's mat_mul_mont, the mont_mul + tree_sum_mod chain and python
 ints, on the same numpy-seeded inputs. Exact: np.array_equal on limbs.
 
 Both forms of the port run here: the wrapper's CPU path (the plain chain)
-and the limb-plane scheme that the card's three kernels compute, as the
+and the limb-plane scheme that the card's two kernels compute, as the
 composition of their plain versions (7-bit planes, their float64 product,
 the fold, the recompose and mont_reduce_wide)."""
 import numpy as np

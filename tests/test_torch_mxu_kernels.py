@@ -1,4 +1,4 @@
-"""mat_mul_mont's three kernels (zkfhe_tpu_torch/csrc/mxu_kernels.cu) through
+"""mat_mul_mont's two kernels (zkfhe_tpu_torch/csrc/mxu_kernels.cu) through
 their plain versions, against the JAX package's mat_mul_mont and its pieces
 on the same numpy-seeded inputs, exactly. The kernels themselves run only on
 a card (tests/test_torch_gpu.py); here their wrappers must refuse CPU
@@ -60,7 +60,9 @@ def test_plain_mxu_epilogue_matches_jax_fold_recompose_reduce(kind):
     else:
         C = np.random.default_rng(21).integers(
             0, 1 << 31, size=(Bt, P * M, P * N)).astype(np.int32)
-    t_lo, t_hi = _jax_fold(C.reshape(Bt, M, P, P, N))
+    # the port's C[b, m*38+u, n*38+v] in the JAX product's (m, u, v, n)
+    t_lo, t_hi = _jax_fold(
+        C.reshape(Bt, M, P, N, P).transpose(0, 1, 2, 4, 3))
     limbs = JMX._wide_planes_to_limbs(jnp.asarray(t_lo), jnp.asarray(t_hi))
     want = np.asarray(JMX.mont_reduce_wide(JF.FR, limbs))
     got = TMX.plain_mxu_epilogue(TF.FR, torch.from_numpy(C), M, N)
@@ -70,16 +72,17 @@ def test_plain_mxu_epilogue_matches_jax_fold_recompose_reduce(kind):
 
 @pytest.mark.parametrize("Bt,M,Kd,N", [(1, 3, 13, 5), (2, 1, 40, 7)])
 def test_plain_planes7_layouts_match_jax(Bt, M, Kd, N):
-    """lhs (Bt, M*38, Kp) and rhsT (Bt, 38*N, Kp) against JAX to_planes7 in
-    the JAX product's layout (:140-141), the right operand transposed to
-    K-contiguous rows; K padded with zero planes to a multiple of 32."""
+    """lhs (Bt, M*38, Kp) and rhsT (Bt, N*38, Kp) against JAX to_planes7
+    in the JAX product's layout (:140-141), the right operand transposed to
+    K-contiguous rows n*38 + v, the left's own; K padded with zero planes
+    to a multiple of 32."""
     rng = np.random.default_rng(Kd)
     A, B = _limbs(rng, (Bt, M, Kd)), _limbs(rng, (Bt, Kd, N))
     lhs = TMX.plain_planes7(TF.tensor(A, "cpu"), True).numpy()
     rhsT = TMX.plain_planes7(TF.tensor(B, "cpu"), False).numpy()
     Kp = -(-Kd // 32) * 32
     assert TMX.padded_k(Kd) == Kp and lhs.dtype == np.int8
-    assert lhs.shape == (Bt, M * P, Kp) and rhsT.shape == (Bt, P * N, Kp)
+    assert lhs.shape == (Bt, M * P, Kp) and rhsT.shape == (Bt, N * P, Kp)
     assert not lhs[..., Kd:].any() and not rhsT[..., Kd:].any()
     for b in range(Bt):
         Ap = np.asarray(JMX.to_planes7(jnp.asarray(A[:, b])))  # (P, M, K)
@@ -87,7 +90,7 @@ def test_plain_planes7_layouts_match_jax(Bt, M, Kd, N):
         assert np.array_equal(lhs[b, :, :Kd],
                               Ap.transpose(1, 0, 2).reshape(M * P, Kd))
         assert np.array_equal(rhsT[b, :, :Kd],
-                              Bp.transpose(1, 0, 2).reshape(Kd, P * N).T)
+                              Bp.transpose(2, 0, 1).reshape(N * P, Kd))
 
 
 def test_plain_plane_product_exact_at_the_bound():
@@ -109,7 +112,7 @@ def test_plain_plane_product_exact_at_the_bound():
 
 @pytest.mark.parametrize("shared", [False, True], ids=["batch", "shared"])
 def test_plane_scheme_matches_jax_mat_mul_mont_with_batch(shared):
-    """mat_mul_mont_planes (the three plain versions composed) with a batch
+    """mat_mul_mont_planes (the two plain versions composed) with a batch
     dimension against the JAX mat_mul_mont of each batch entry; "shared"
     gives A no batch dimension, so it is broadcast with stride 0."""
     rng = np.random.default_rng(23 + shared)
@@ -126,8 +129,55 @@ def test_plane_scheme_matches_jax_mat_mul_mont_with_batch(shared):
         assert np.array_equal(TF.to_numpy(got[:, b]), want)
 
 
-@pytest.mark.parametrize("kernel", ["planes7", "plane_mm_s8",
-                                    "mxu_epilogue"])
+@pytest.mark.parametrize("layout", ["evaluations", "fold"])
+@pytest.mark.parametrize("splits", [1, 2, 3])
+def test_plain_fused_path_matches_jax_mat_mul_mont(layout, splits):
+    """plain_plane_mm_redc, through mat_mul_mont_planes, against the JAX
+    mat_mul_mont: the planes' layout and K padding, the operand roles of
+    the kernel ("evaluations": A, with more elements, on the MMA's 64-row
+    side; "fold": B) and its K ranges at S splits of K = 600 (five 128-byte
+    steps, the last cut to 96 bytes, so that no S > 1 divides them)."""
+    M, N = (3, 2) if layout == "evaluations" else (2, 13)
+    Kd = 600
+    rng = np.random.default_rng(24 + splits)
+    A, B = _limbs(rng, (M, Kd)), _limbs(rng, (Kd, N))
+    Kp = TMX.padded_k(Kd)
+    assert Kp == 608 and TMX._swap(M, N) == (layout == "fold")
+    ranges = TMX.split_ranges(Kp, splits)
+    assert ranges[0][0] == 0 and ranges[-1][1] == Kp and len(ranges) == splits
+    assert all(k0 < k1 and k0 % TMX.KSTEP == 0 and k1 == n0
+               for (k0, k1), (n0, _) in zip(ranges, ranges[1:]))
+    got = TMX.mat_mul_mont_planes(TF.FR, TF.tensor(A, "cpu"),
+                                  TF.tensor(B, "cpu"), splits=splits)
+    want = np.asarray(JMX.mat_mul_mont(JF.FR, jnp.asarray(A),
+                                       jnp.asarray(B)))
+    assert np.array_equal(TF.to_numpy(got), want)
+
+
+def test_split_plan_at_the_provers_shapes():
+    """The wrapper's operand roles and split counts on an H100 (132 SMs,
+    two blocks each): K split where the output tiles cannot fill the card
+    (the evaluations: as many ranges as fill one wave) or where a range
+    would pass 27 chunks of 128 bytes (the int32 bound of the wide-plane
+    sums), at most one range a chunk, and no split of the folds (K = 64:
+    one chunk)."""
+    plan = TMX.split_plan
+    assert TMX.MAX_CHUNKS == 27
+    assert plan(1, 128, 5, 8192) == (False, 44)  # 2 x 3 tiles
+    assert plan(1, 128, 5, 32768) == (False, 44)
+    assert plan(8, 128, 5, 8192) == (False, 5)  # 48 tiles
+    assert plan(1, 1, 8192, 64) == (True, 1)
+    assert plan(8, 1, 8192, 64) == (True, 1)
+    assert plan(1, 3, 2, 256) == (False, 2)  # two chunks
+    assert plan(64, 128, 5, 8192) == (False, 3)  # 64 chunks, 27 a range
+    assert plan(1, 2, 3, TMX.padded_k(TMX.MAX_K)) == (True, 264)
+    with pytest.raises(ValueError):
+        TMX.split_ranges(256, 3)
+    with pytest.raises(ValueError):
+        TMX.split_ranges(8192, 2)  # 32 chunks a range
+
+
+@pytest.mark.parametrize("kernel", ["planes7", "plane_mm_redc"])
 def test_mxu_wrappers_refuse_cpu_tensors_and_wrong_dtypes(kernel):
     """A kernel's wrapper raises on a CPU tensor and on a wrong dtype, before
     it builds or loads anything, and counts nothing."""
@@ -135,12 +185,9 @@ def test_mxu_wrappers_refuse_cpu_tensors_and_wrong_dtypes(kernel):
         if kernel == "planes7":
             return TMX.cuda_planes7(torch.zeros(20, 1, 2, 3, dtype=dtype),
                                     True)
-        if kernel == "plane_mm_s8":
-            x = torch.zeros(1, 38, 32, dtype=dtype)
-            return TMX.cuda_plane_mm_s8(x, x)
-        return TMX.cuda_mxu_epilogue(
-            TF.FR, torch.zeros(1, 38, 38, dtype=dtype), 1, 1)
-    right = torch.int8 if kernel == "plane_mm_s8" else torch.int32
+        x = torch.zeros(1, 38, 32, dtype=dtype)
+        return TMX.cuda_plane_mm_redc(TF.FR, x, x, 1, 1)
+    right = torch.int8 if kernel == "plane_mm_redc" else torch.int32
     TMX.reset_counts()
     with pytest.raises(ValueError, match="CUDA"):
         call(right)

@@ -309,11 +309,9 @@ def load():
                                    f"{fld.name}")
         # the modular matmul's kernels (wrappers in mxu_field.py)
         lib.zk_planes7.argtypes = [vp] + [i64] * 10 + [vp, vp]
-        lib.zk_plane_mm_s8.argtypes = [vp, vp, vp] + [i64] * 4 + [vp]
-        lib.zk_mxu_epilogue.argtypes = [i32, vp, vp, i64, i64, vp]
+        lib.zk_plane_mm_redc.argtypes = [i32, vp, vp] + [i64] * 12 + [vp] * 4
         lib.zk_mxu_params.argtypes = [ctypes.POINTER(ctypes.c_uint32)]
-        for name in ("zk_planes7", "zk_plane_mm_s8", "zk_mxu_epilogue",
-                     "zk_mxu_params"):
+        for name in ("zk_planes7", "zk_plane_mm_redc", "zk_mxu_params"):
             getattr(lib, name).restype = i32
         buf = (ctypes.c_uint32 * L)()
         lib.zk_mxu_params(buf)

@@ -6,26 +6,28 @@ out = (sum_k A_mk * B_kn) * R^-1 mod p, the contraction form of
 each kernel. The prover uses it for every evaluation of the opened
 polynomials and for the SHPLONK folds, the batched prover with a proof axis.
 
-It runs the JAX package's limb-plane scheme, on a CUDA tensor as three
-hand-written kernels (csrc/mxu_kernels.cu), four launches a call:
+It runs the JAX package's limb-plane scheme, on a CUDA tensor as two
+hand-written kernels (csrc/mxu_kernels.cu), three launches a call:
 
 * ``planes7`` (twice, once per operand): each 260-bit operand (20 x 13-bit
-  limbs) as 38 planes of 7 bits in int8 (values 0..127), laid out for the
-  product: lhs (Bt, M*38, Kp) with row (m, u), rhsT (Bt, 38*N, Kp) with row
-  (v, n), both K-contiguous, K padded with zero planes to Kp, a multiple of
-  32;
-* ``plane_mm_s8``: ONE int8 tensor-core product of every plane pair,
-  C[(m, u), (v, n)] = sum_k a_u[m, k] b_v[k, n] in int32, each entry below
-  127^2 * K < 2^31 for K <= MAX_K (the JAX package's s8 x s8 -> s32
-  ``dot_general``);
-* ``mxu_epilogue``: per output, C split 16/16, plane pairs u + v = s folded
-  into 75 wide planes, recomposed into 13-bit limbs, the top folded with
-  2^507 mod p, and REDC.
+  limbs) as 38 planes of 7 bits in int8 (values 0..127), one layout for
+  both: lhs (Bt, M*38, Kp) with row (m, u), rhsT (Bt, N*38, Kp) with row
+  (n, v), K-contiguous, K padded with zero planes to Kp, a multiple of 32;
+* ``plane_mm_redc``: the JAX package's s8 x s8 -> s32 ``dot_general`` and
+  its epilogue in one kernel. On the int8 tensor cores it computes, per
+  output, the 75 wide-plane sums W[s] = sum_{u+v=s} sum_k a_u[m, k]
+  b_v[k, n] directly (a product with the Toeplitz band of the other
+  operand's planes; int32, below 2^31 over a range of up to MAX_CHUNKS
+  chunks of K), then splits them 16/16, recomposes 13-bit limbs, folds the
+  top with 2^507 mod p and runs REDC. Where the output tiles are too few
+  to fill the card, or K too long for one range, ``split_plan`` splits K
+  into ranges whose sums meet in a zeroed workspace.
 
 Every step is exact integer arithmetic, so the result is the canonical
 field element, limb for limb the JAX package's. Each kernel's plain
-version (``plain_planes7``, ``plain_plane_product``,
-``plain_mxu_epilogue``) sits beside its wrapper; ``mat_mul_mont_planes``
+version (``plain_planes7``, ``plain_plane_mm_redc``, which composes
+``plain_plane_product`` and ``plain_mxu_epilogue`` over the same K ranges
+and operand roles) sits beside its wrapper; ``mat_mul_mont_planes``
 composes them. On the CPU the wrapper runs ``plain_mat_mul_mont``, the
 ``mont_mul`` + tree-sum chain, which is also the oracle on the card.
 """
@@ -44,8 +46,16 @@ NPLANES = -(-NLIMBS * LIMB_BITS // PBITS)
 NWIDE = 2 * NPLANES - 1
 MAX_K = (1 << 31) // (127 * 127)  # bound of the int32 plane product
 KP_ALIGN = 32  # the planes' K axis is padded to a multiple of this
+# plane_mm_redc's tile: TILE_X elements of the operand with more elements
+# (a row each on the MMA's 64-row side) by TILE_Y of the other; K in chunks
+# of KSTEP bytes, at most MAX_CHUNKS a range, so that a range's wide-plane
+# sums (each below 38 * 127^2 per byte of K) stay below 2^31
+TILE_X, TILE_Y, KSTEP = 64, 2, 128
+MAX_CHUNKS = (2**31 - 1) // (NPLANES * 127 * 127 * KSTEP)
+# blocks of plane_mm_redc an SM holds at once (shared memory: 2 x 108 KB)
+BLOCKS_PER_SM = 2
 
-KERNELS = ("planes7", "plane_mm_s8", "mxu_epilogue")
+KERNELS = ("planes7", "plane_mm_redc")
 # calls of mat_mul_mont on the card, and launches of each of its kernels,
 # since the last reset
 LAUNCHES = {"mat_mul_mont": 0, **dict.fromkeys(KERNELS, 0)}
@@ -192,16 +202,57 @@ def _operands(A, B):
             B.reshape(NLIMBS, -1, Kd, N), M, Kd, N)
 
 
+def _swap(M: int, N: int) -> bool:
+    """plane_mm_redc puts B's planes on the MMA's 64-row side when B has
+    more elements than A (the SHPLONK folds), A's otherwise."""
+    return N > M
+
+
+def split_plan(nb: int, M: int, N: int, Kp: int, sms: int = 132):
+    """(swap, splits) of plane_mm_redc for nb batch entries of an (M, K) x
+    (K, N) product whose planes have Kp bytes a row: the operand roles
+    (``_swap``), and the number of K ranges: at most MAX_CHUNKS chunks a
+    range, and where the output tiles are fewer than the BLOCKS_PER_SM
+    blocks that `sms` SMs hold at once, as many ranges as fill those slots
+    in one wave (a second, partial wave costs a whole one), up to one chunk
+    a range."""
+    swap = _swap(M, N)
+    ex, ey = (N, M) if swap else (M, N)
+    tiles = nb * -(-ex // TILE_X) * -(-ey // TILE_Y)
+    chunks = -(-Kp // KSTEP)
+    wave = BLOCKS_PER_SM * sms // tiles
+    return swap, min(chunks, max(-(-chunks // MAX_CHUNKS), wave, 1))
+
+
+def _chunks(Kp: int, splits: int) -> int:
+    """The KSTEP chunks of Kp; raises where `splits` ranges of them are not
+    what the kernel takes (1 to one a chunk, at most MAX_CHUNKS a range)."""
+    n = -(-Kp // KSTEP)
+    if not 1 <= splits <= n or -(-n // splits) > MAX_CHUNKS:
+        raise ValueError(f"plane_mm_redc: {splits} splits of {n} K chunks")
+    return n
+
+
+def split_ranges(Kp: int, splits: int):
+    """The K byte ranges of the splits as the kernel takes them: of the
+    n = ceil(Kp / KSTEP) chunks, split s has [s*n // S, (s+1)*n // S), the
+    last chunk cut at Kp."""
+    n = _chunks(Kp, splits)
+    return [(KSTEP * (n * s // splits),
+             min(Kp, KSTEP * (n * (s + 1) // splits)))
+            for s in range(splits)]
+
+
 # ---------------------------------------------------------------------------
-# Plain versions of the three kernels
+# Plain versions of the two kernels
 # ---------------------------------------------------------------------------
 
 def plain_planes7(X, lhs: bool):
     """planes7's plain version. X (L, Bt, M, K) -> lhs (Bt, M*38, Kp), row
-    m*38 + u; or (lhs=False) X (L, Bt, K, N) -> rhsT (Bt, 38*N, Kp), row
-    v*N + n. int8, K-contiguous, columns K..Kp-1 zero."""
+    m*38 + u; or (lhs=False) X (L, Bt, K, N) -> rhsT (Bt, N*38, Kp), row
+    n*38 + v. int8, K-contiguous, columns K..Kp-1 zero."""
     P = to_planes7(X)  # (38, Bt, ., .)
-    P = P.permute(1, 2, 0, 3) if lhs else P.permute(1, 0, 3, 2)
+    P = P.permute(1, 2, 0, 3) if lhs else P.permute(1, 3, 0, 2)
     Kd = P.shape[-1]
     P = P.reshape(P.shape[0], -1, Kd)
     pad = torch.zeros(P.shape[:2] + (padded_k(Kd) - Kd,), dtype=P.dtype,
@@ -210,20 +261,21 @@ def plain_planes7(X, lhs: bool):
 
 
 def plain_plane_product(lhs, rhsT):
-    """plane_mm_s8's plain version: (Bt, MR, Kp) . (Bt, NC, Kp)^T -> int32
-    (Bt, MR, NC), through a float64 matmul, which is exact: every product
-    and partial sum is an integer below 2^31 < 2^53."""
+    """The plane product: (Bt, MR, Kp) . (Bt, NC, Kp)^T -> int32
+    (Bt, MR, NC) (a batch of 1 broadcasts), through a float64 matmul,
+    which is exact: every product and partial sum is an integer below
+    2^31 < 2^53."""
     return torch.matmul(lhs.to(torch.float64),
                         rhsT.to(torch.float64).transpose(1, 2)).to(
                             torch.int32)
 
 
 def plain_mxu_epilogue(field: F.Field, C, M: int, N: int):
-    """mxu_epilogue's plain version: C (Bt, M*38, 38*N) int32 plane-pair
-    sums -> (L, Bt, M, N) canonical limbs of (sum_{u,v} C[m,u,v,n]
+    """The epilogue: C (Bt, M*38, N*38) int32 plane-pair sums, C[b, m*38+u,
+    n*38+v] -> (L, Bt, M, N) canonical limbs of (sum_{u,v} C[m,u,n,v]
     2^(7(u+v))) R^-1 mod p."""
     Bt = C.shape[0]
-    C = C.reshape(Bt, M, NPLANES, NPLANES, N)
+    C = C.reshape(Bt, M, NPLANES, N, NPLANES)
     # split before the pair fold: fold sums of raw C would pass 2^31
     # (C is non-negative: every plane value is in [0, 127])
     C_lo = C & 0xFFFF
@@ -234,22 +286,42 @@ def plain_mxu_epilogue(field: F.Field, C, M: int, N: int):
                                   for v in range(NPLANES)],
                          torch.int64, C.device)
 
-    def fold(X):  # (Bt, M, P, P, N) -> (S, Bt, M, N), S = 2P-1
+    def fold(X):  # (Bt, M, P, N, P) -> (S, Bt, M, N), S = 2P-1
         t = torch.zeros((NWIDE, Bt, M, N), dtype=X.dtype, device=X.device)
-        return t.index_add_(0, pair, X.reshape(
-            Bt, M, NPLANES * NPLANES, N).movedim(-2, 0))
+        return t.index_add_(0, pair, X.permute(2, 4, 0, 1, 3).reshape(
+            NPLANES * NPLANES, Bt, M, N))
 
     limbs = _wide_planes_to_limbs(fold(C_lo), fold(C_hi))  # (NL, Bt, M, N)
     return mont_reduce_wide(field, limbs)
 
 
-def mat_mul_mont_planes(field: F.Field, A, B):
-    """The limb-plane scheme with the three kernels' plain versions, on any
-    device."""
-    batch, A, B, M, _, N = _operands(A, B)
-    C = plain_plane_product(plain_planes7(A, True), plain_planes7(B, False))
-    return plain_mxu_epilogue(field, C, M, N).reshape(
-        (NLIMBS,) + batch + (M, N))
+def plain_plane_mm_redc(field: F.Field, lhs, rhsT, M: int, N: int,
+                        splits: int = 1):
+    """plane_mm_redc's plain version: lhs (Bt, M*38, Kp) and rhsT
+    (Bt, N*38, Kp) planes (a batch of 1 is shared) -> (L, Bt, M, N)
+    canonical limbs of (sum_k A B) R^-1 mod p. As the kernel: the operand
+    with more elements is X, the plane sums are C = X . Y^T added up over
+    the `splits` K ranges, and the epilogue reads C or its transpose."""
+    swap = _swap(M, N)
+    X, Y = (rhsT, lhs) if swap else (lhs, rhsT)
+    C = None
+    for k0, k1 in split_ranges(lhs.shape[-1], splits):
+        part = plain_plane_product(X[..., k0:k1], Y[..., k0:k1])
+        C = part if C is None else C + part
+    out = plain_mxu_epilogue(field, C, *((N, M) if swap else (M, N)))
+    return out.transpose(2, 3).contiguous() if swap else out
+
+
+def mat_mul_mont_planes(field: F.Field, A, B, splits=None):
+    """The limb-plane scheme with the two kernels' plain versions, on any
+    device; K split as the wrapper splits it on an H100 (132 SMs) unless
+    `splits` is given."""
+    batch, A, B, M, Kd, N = _operands(A, B)
+    if splits is None:
+        _, splits = split_plan(A.shape[1], M, N, padded_k(Kd))
+    return plain_plane_mm_redc(
+        field, plain_planes7(A, True), plain_planes7(B, False), M, N,
+        splits).reshape((NLIMBS,) + batch + (M, N))
 
 
 # ---------------------------------------------------------------------------
@@ -281,63 +353,77 @@ def cuda_planes7(X, lhs: bool):
         raise ValueError(f"planes7: leading axis must be {NLIMBS} limbs, got "
                          f"{tuple(X.shape)}")
     Bt = X.shape[1]
-    if lhs:  # (L, Bt, M, K): rows m, row (m, u) = m*38 + u
-        R, Kd, sr, sk, rs, us = (X.shape[2], X.shape[3], X.stride(2),
-                                 X.stride(3), NPLANES, 1)
-    else:  # (L, Bt, K, N): rows n, row (v, n) = v*N + n
+    if lhs:  # (L, Bt, M, K): rows m
+        R, Kd, sr, sk = X.shape[2], X.shape[3], X.stride(2), X.stride(3)
+    else:  # (L, Bt, K, N): rows n
         Kd, R, sk, sr = X.shape[2], X.shape[3], X.stride(2), X.stride(3)
-        rs, us = 1, R
     if Kd > MAX_K:
         raise ValueError(f"planes7: K = {Kd} > MAX_K = {MAX_K}")
     lib = K.load()
     out = torch.empty((Bt, NPLANES * R, padded_k(Kd)), dtype=torch.int8,
                       device=X.device)
+    # row (r, u) = r*38 + u
     _launched("planes7", lib.zk_planes7(
         X.data_ptr(), X.stride(0), X.stride(1), sr, sk, Bt, R, Kd,
-        out.shape[2], rs, us, out.data_ptr(), K.stream()))
+        out.shape[2], NPLANES, 1, out.data_ptr(), K.stream()))
     return out
 
 
-def cuda_plane_mm_s8(lhs, rhsT):
-    """Launch zk_plane_mm_s8: (Bt, MR, Kp) . (Bt, NC, Kp)^T -> int32
-    (Bt, MR, NC) on the int8 tensor cores."""
+_SMS = {}
+
+
+def _sms(device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
+
+
+def cuda_plane_mm_redc(field: F.Field, lhs, rhsT, M: int, N: int,
+                       splits=None):
+    """Launch zk_plane_mm_redc: plain_plane_mm_redc's function on the int8
+    tensor cores, one launch; lhs (Bl, M*38, Kp), rhsT (Br, N*38, Kp)
+    contiguous planes, Bl and Br each 1 (shared along the batch, read with
+    stride 0) or Bt. K is split as split_plan says, unless `splits` is
+    given; the split ranges meet in a workspace zeroed here. Built for Fr,
+    the field of every matmul of the prover."""
     for x in (lhs, rhsT):
-        _check_cuda("plane_mm_s8", x, torch.int8, 3)
+        _check_cuda("plane_mm_redc", x, torch.int8, 3)
         if not x.is_contiguous():
-            raise ValueError("plane_mm_s8: planes must be contiguous")
-    (Bt, MR, Kp), (Bt2, NC, Kp2) = lhs.shape, rhsT.shape
-    if (Bt, Kp) != (Bt2, Kp2) or Kp % KP_ALIGN or NC % 2:
-        raise ValueError(f"plane_mm_s8: shapes {tuple(lhs.shape)} and "
-                         f"{tuple(rhsT.shape)} (K a multiple of {KP_ALIGN}, "
-                         f"columns even)")
-    if Kp > padded_k(MAX_K) or lhs.device != rhsT.device:
-        raise ValueError("plane_mm_s8: K past the int32 bound, or operands "
-                         "on different devices")
-    lib = K.load()
-    C = torch.empty((Bt, MR, NC), dtype=torch.int32, device=lhs.device)
-    _launched("plane_mm_s8", lib.zk_plane_mm_s8(
-        lhs.data_ptr(), rhsT.data_ptr(), C.data_ptr(), Bt, MR, NC, Kp,
-        K.stream()))
-    return C
-
-
-def cuda_mxu_epilogue(field: F.Field, C, M: int, N: int):
-    """Launch zk_mxu_epilogue: plain_mxu_epilogue's function (the kernel is
-    built for Fr, the field of every matmul of the prover)."""
-    _check_cuda("mxu_epilogue", C, torch.int32, 3)
+            raise ValueError("plane_mm_redc: planes must be contiguous")
     if field.p != F.FR.p:
-        raise ValueError(f"mxu_epilogue: the CUDA kernel is built for Fr, "
+        raise ValueError(f"plane_mm_redc: the CUDA kernel is built for Fr, "
                          f"not {field.name}")
-    if not C.is_contiguous() or C.shape[1:] != (NPLANES * M, NPLANES * N):
-        raise ValueError(f"mxu_epilogue: C must be a contiguous (Bt, "
-                         f"{NPLANES * M}, {NPLANES * N}), got "
-                         f"{tuple(C.shape)}")
+    (Bl, MR, Kp), (Br, NC, Kp2) = lhs.shape, rhsT.shape
+    Bt = max(Bl, Br)
+    if (Kp != Kp2 or Kp % KP_ALIGN or (MR, NC) != (NPLANES * M, NPLANES * N)
+            or not {Bl, Br} <= {1, Bt}):
+        raise ValueError(f"plane_mm_redc: planes {tuple(lhs.shape)} and "
+                         f"{tuple(rhsT.shape)} for M = {M}, N = {N} (rows "
+                         f"38 an element, K a multiple of {KP_ALIGN})")
+    if Kp > padded_k(MAX_K) or lhs.device != rhsT.device:
+        raise ValueError("plane_mm_redc: K past the int32 bound, or operands "
+                         "on different devices")
+    swap, plan = split_plan(Bt, M, N, Kp, _sms(lhs.device))
+    splits = plan if splits is None else splits
+    _chunks(Kp, splits)
+    X, Y = (rhsT, lhs) if swap else (lhs, rhsT)
+    ex, ey = (N, M) if swap else (M, N)
+    dev = lhs.device
+    out = torch.empty((NLIMBS, Bt, M, N), dtype=F.DTYPE, device=dev)
+    ws = cnt = None
+    if splits > 1:  # each tile's 64 x 160 sums in 64 bits, then a counter
+        tiles = Bt * -(-ex // TILE_X) * -(-ey // TILE_Y)
+        ws = torch.zeros(tiles * (TILE_X * TILE_Y * 80 + 1),
+                         dtype=torch.int64, device=dev)
+        cnt = ws[tiles * TILE_X * TILE_Y * 80:]
     lib = K.load()
-    Bt = C.shape[0]
-    out = torch.empty((NLIMBS, Bt, M, N), dtype=F.DTYPE, device=C.device)
-    _launched("mxu_epilogue", lib.zk_mxu_epilogue(
-        K.field_index(field), C.data_ptr(), out.data_ptr(), Bt * M * N, N,
-        K.stream()))
+    _launched("plane_mm_redc", lib.zk_plane_mm_redc(
+        K.field_index(field), X.data_ptr(), Y.data_ptr(), X.shape[0],
+        Y.shape[0], X.stride(0), Y.stride(0), Bt, ex, ey, Kp, splits,
+        int(swap), M, N, out.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        None if cnt is None else cnt.data_ptr(), K.stream()))
     return out
 
 
@@ -386,12 +472,15 @@ def plain_mat_mul_mont(field: F.Field, A, B):
 def mat_mul_mont(field: F.Field, A, B):
     """A (L, *batch, M, K) x B (L, *batch, K, N) -> (L, *batch, M, N) =
     (sum_k A B) R^-1 mod p; batch dims broadcast. On the card: the planes
-    of A and of B, their product and the epilogue, one launch each for the
-    whole batch."""
+    of A and of B (once for an operand shared along the batch) and the
+    fused product and epilogue, one launch each for the whole batch."""
     if A.is_cuda or B.is_cuda:
         batch, A, B, M, _, N = _operands(A, B)
-        C = cuda_plane_mm_s8(cuda_planes7(A, True), cuda_planes7(B, False))
-        out = cuda_mxu_epilogue(field, C, M, N)
+
+        def once(X):  # an operand broadcast along the batch: one entry
+            return X[:, :1] if X.shape[1] > 1 and X.stride(1) == 0 else X
+        out = cuda_plane_mm_redc(field, cuda_planes7(once(A), True),
+                                 cuda_planes7(once(B), False), M, N)
         LAUNCHES["mat_mul_mont"] += 1
         return out.reshape((NLIMBS,) + batch + (M, N))
     return plain_mat_mul_mont(field, A, B)
