@@ -31,13 +31,21 @@ Phases, each printed with its time; any failure exits non-zero:
    public values, cell count and trace digest equal to the JAX package's
    (tests/fixtures/torch_reference_k13.json);
 6. keygen: ``cli.main`` keygen of bfv/bfv_empty.in at k=13 into a
-   temporary directory: vk digest equal to the JAX package's;
+   temporary directory: vk digest equal to the JAX package's; the time
+   to write the artifacts and the pk's size, its stored assembly's
+   (``torch_asm_`` keys) apart, are printed;
 7. prove: ``cli.main`` prove of bfv/bfv.in at k=13 with that vk and pk;
-   the prover's stage times and the proof's length are printed, and the
+   the pk must load on the cached route (its stored assembly, no circuit
+   run), whose time is printed beside the re-derived load's; the
+   prover's stage times and the proof's length are printed, and the
    length must equal the fixture's ``proof_len``;
 8. verify: ``cli.main`` verify of that proof returns 0, and non-zero with
    one byte of the proof flipped and with one public value changed;
-9. serial: the keygen's pk loaded once; bfv.in and seven inputs of
+9. serial: the keygen's pk loaded once (cached route), its assembly held
+   to a fresh ``assemble(trace_layout(...))`` of bfv.in (the layout and
+   fixed-column digests, ``config_json()``, ``sigma_col``, ``sigma_row``)
+   and round-tripped through ``utils/convert.assembly_arrays`` and an
+   ``.npz`` of its own (write and read timed); bfv.in and seven inputs of
    ``bfv.generate_input(BfvParams(n=1024), seed=100+i)``, i = 1..7 (as
    scripts/bench_batch.py); one warm-up ``prover.prove``, then one timed
    ``prove(..., rng_seed=b"s0")``;
@@ -70,6 +78,9 @@ Phases, each printed with its time; any failure exits non-zero:
    verify must accept the proof and reject it with one byte flipped and
    with one public value changed; the stage times, the peak device memory
    of keygen and of the timed prove and its table-MSM calls are printed;
+   the keygen's assembly round-trips through the array form into an
+   ``.npz`` of its own (write and read timed against the derivation), and
+   the read-back layout and fixed columns must have the JAX digests;
 14. nolag: ``SRS.load(13)`` (no Lagrange points), an in-process keygen
    of bfv_empty.in (every commitment ``keygen.commit_columns``, the scan
    MSM; vk digest equal to the JAX package's) and ``PV.prove`` of bfv.in
@@ -105,15 +116,15 @@ Phases, each printed with its time; any failure exits non-zero:
    of the same lanes through ``ntt.ntt``, whose time per stage shows what
    the stage's copies around ``bfly_dif`` cost;
 18. the ``matmul``, ``proof_paths``, ``k15``, ``nolag``, ``witgen64``,
-   ``mesh`` and ``kernels`` JSON lines: per kernel, its launches in phases
-   5-7, in the batch, the stream, the keccak phase, the k=15 phase, the
-   no-Lagrange keygen and prove, the batched witness of 64 and the mesh
-   prove and stream (each must be > 0 for mont_mul, add, sub and
-   bfly_dif, except bfly_dif in the keccak phase, whose circuit runs no
-   NTT; bfly's launches are those of its check in phase 3; on every path
-   that calls mat_mul_mont, planes7 must launch twice and plane_mm_redc
-   once per call), its largest mismatch over phases 3, 4 and
-   17, its time, its plain version's time and its bound (the matmul's
+   ``mesh``, ``pk_cache`` and ``kernels`` JSON lines: per kernel, its
+   launches in phases 5-7, in the batch, the stream, the keccak phase,
+   the k=15 phase, the no-Lagrange keygen and prove, the batched witness
+   of 64 and the mesh prove and stream (each must be > 0 for mont_mul,
+   add, sub and bfly_dif, except bfly_dif in the keccak phase, whose
+   circuit runs no NTT; bfly's launches are those of its check in phase
+   3; on every path that calls mat_mul_mont, planes7 must launch twice
+   and plane_mm_redc once per call), its largest mismatch over phases 3,
+   4 and 17, its time, its plain version's time and its bound (the matmul's
    kernels at their largest launch of phase 4).
 
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -212,6 +223,13 @@ MESH_MSM_POINTS = 256
 # k=15's full-width calls, one column of W=53 windows (c=5) x 32768 rows
 TREE_SHAPE = (1, 53 * 32768)
 SOURCE = "zkfhe_tpu_torch/csrc/field_kernels.cu"
+# the prove verb's ``load pk`` when it re-derived the assembly on every
+# load (bfv.in, k=13; NVIDIA H100 80GB HBM3, 700 W), printed beside this
+# run's cached load
+DERIVED_LOAD_S = 8.377
+
+# what the pk's stored assembly costs and saves, for the pk_cache line
+PK_CACHE = {}
 
 # a failed check is recorded and the run goes on, so that one run reports
 # every failure; the script then exits 1 without the result lines
@@ -593,6 +611,7 @@ def profile_prove_proper(dev, data_dir, params_dir):
     pk = KG.load_pk(os.path.join(data_dir, "bfv.pk.npz"),
                     KG.load_vk(os.path.join(data_dir, "bfv.vk.npz")),
                     circuit, inputs, device=dev)
+    require_cached("profile")
     t0 = time.time()
     PV.prove(pk, srs, circuit, inputs, rng_seed=b"smoke-1")
     torch.cuda.synchronize()
@@ -630,6 +649,75 @@ def run_path(K, MX, MSM, name, fn):
     return out, res
 
 
+def pk_file_sizes(path):
+    """Bytes of a pk file, and of its members: the stored assembly's
+    (``torch_asm_`` keys) and the rest, compressed."""
+    import zipfile
+    from zkfhe_tpu_torch.backend import keygen as KG
+    with zipfile.ZipFile(path) as z:
+        members = [(i.filename, i.compress_size) for i in z.infolist()]
+    cache = sum(b for name, b in members if name.startswith(KG.ASM_PREFIX))
+    return dict(file_bytes=os.path.getsize(path), cache_bytes=cache,
+                other_bytes=sum(b for _, b in members) - cache)
+
+
+def require_cached(where):
+    from zkfhe_tpu_torch.backend import keygen as KG
+    if KG.LAST_PK_LOAD.get("route") != "cached":
+        FAILURES.append(f"{where}: the pk load took the route "
+                        f"{KG.LAST_PK_LOAD}, not the cached one")
+
+
+def asm_round_trip(asm, path):
+    """The assembly through utils/convert's array form into an .npz of its
+    own and back: (the read-back assembly, write s, read s, bytes)."""
+    from zkfhe_tpu_torch.utils import convert as CV
+    t0 = time.time()
+    np.savez_compressed(path, **CV.assembly_arrays(asm))
+    write_s = time.time() - t0
+    t0 = time.time()
+    with np.load(path, allow_pickle=False) as d:
+        back = CV.assembly_from_arrays(d)
+    return back, write_s, time.time() - t0, os.path.getsize(path)
+
+
+def check_cached_assembly(asm, circuit, inputs, tmp):
+    """The pk's stored assembly against a fresh assemble(trace_layout(...))
+    of the same circuit; then its array-form round trip, timed."""
+    from zkfhe_tpu_torch import cli
+    from zkfhe_tpu_torch.backend.assembly import assemble
+    from zkfhe_tpu_torch.trace.compile import trace_layout
+    from zkfhe_tpu_torch.utils import convert as CV
+    t0 = time.time()
+    fresh = assemble(trace_layout(circuit, inputs), asm.k)
+    derive_s = time.time() - t0
+    for key, got, want in (
+            ("layout digest", cli.trace_digest(CV.layout_arrays(asm.layout)),
+             cli.trace_digest(CV.layout_arrays(fresh.layout))),
+            ("fixed-column digest", cli.trace_digest(CV.fixed_arrays(asm)),
+             cli.trace_digest(CV.fixed_arrays(fresh))),
+            ("config_json", json.dumps(asm.config_json()),
+             json.dumps(fresh.config_json())),
+            ("sigma_col", True, np.array_equal(asm.sigma_col,
+                                               fresh.sigma_col)),
+            ("sigma_row", True, np.array_equal(asm.sigma_row,
+                                               fresh.sigma_row))):
+        if got != want:
+            FAILURES.append(f"k=13 cached assembly's {key} differs from a "
+                            f"fresh derivation's")
+    back, write_s, read_s, nbytes = asm_round_trip(
+        asm, os.path.join(tmp, "k13_asm.npz"))
+    if json.dumps(back.config_json()) != json.dumps(asm.config_json()) or \
+            not np.array_equal(back.sigma_col, asm.sigma_col):
+        FAILURES.append("k=13 assembly's array-form round trip differs")
+    PK_CACHE["k13_arrays"] = dict(derive_s=derive_s, write_s=write_s,
+                                  read_s=read_s, bytes=nbytes)
+    print(f"[smoke] k=13 cached assembly against a fresh derivation "
+          f"(trace_layout + assemble {derive_s:.3f}s): layout and fixed "
+          f"digests, config_json, sigma checked; array form alone: write "
+          f"{write_s:.3f}s, read {read_s:.3f}s, {nbytes} bytes")
+
+
 def check_batch_and_stream(K, MX, dev, data_dir, params_dir):
     """Phases 9-11: serial, batch and stream proofs of eight k=13 inputs
     on one loaded pk; returns the measurements of the three paths."""
@@ -655,6 +743,8 @@ def check_batch_and_stream(K, MX, dev, data_dir, params_dir):
     vk = KG.load_vk(os.path.join(data_dir, "bfv.vk.npz"))
     pk = KG.load_pk(os.path.join(data_dir, "bfv.pk.npz"), vk, circuit,
                     inputs[0], device=dev)
+    require_cached("serial, batch and stream")
+    check_cached_assembly(pk.asm, circuit, inputs[0], data_dir)
     instances = [F.array_to_ints(TC.make_witgen_p0(circuit)(inp)[1])
                  for inp in inputs]
     seeds = [b"s%d" % i for i in range(BATCH_B)]
@@ -1007,6 +1097,7 @@ def check_mesh(K, MX, MSM, dev, data_dir, params_dir, serial, ctx):
     vk = KG.load_vk(os.path.join(data_dir, "bfv.vk.npz"))
     pk = KG.load_pk(os.path.join(data_dir, "bfv.pk.npz"), vk, circuit,
                     inputs[0], device=dev)
+    require_cached("mesh")
     PV.prove(pk, srs, circuit, inputs[0], rng_seed=b"warm", mesh=mesh)
     print(f"[smoke] mesh set-up (pk, warm-up mesh prove): "
           f"{time.time() - t0:.3f}s")
@@ -1206,6 +1297,25 @@ def check_k15(K, MX, MSM, cli, dev, tmp):
     print(f"[smoke] k=15 keygen's layout and fixed columns, vk shape, delta, "
           f"column counts, proof length against the JAX package's: "
           f"{time.time() - t0:.3f}s")
+    # the assembly alone through the array form (the whole k=15 pk, its
+    # coefficient limbs compressed, would take minutes to write)
+    back, write_s, read_s, nbytes = asm_round_trip(
+        pk.asm, os.path.join(tmp, "k15_asm.npz"))
+    for key, val, jax_val in (
+            ("read-back layout digest", cli.trace_digest(
+                CV.layout_arrays(back.layout)), ref["mock"]["layout_digest"]),
+            ("read-back fixed-column digest", cli.trace_digest(
+                CV.fixed_arrays(back)), ref["keygen"]["fixed_digest"])):
+        if val != jax_val:
+            FAILURES.append(f"k=15 {key}: port {val} != JAX {jax_val}")
+    ks = result["keygen_stages"]
+    PK_CACHE["k15_arrays"] = dict(
+        derive_s=ks["layout"] + ks["assembly"], write_s=write_s,
+        read_s=read_s, bytes=nbytes)
+    print(f"[smoke] k=15 assembly's array form: write {write_s:.3f}s, read "
+          f"{read_s:.3f}s, {nbytes} bytes; this run's keygen derived it in "
+          f"{ks['layout'] + ks['assembly']:.3f}s (layout {ks['layout']}s, "
+          f"assembly {ks['assembly']}s)")
     if not result["verify_ok"]:
         FAILURES.append("k=15: the port's verify rejected the proof")
     bad = bytearray(proof)
@@ -1338,6 +1448,12 @@ def main():
                 FAILURES.append(f"keygen {key}: port {kg.get(key)} != JAX "
                                 f"{ref['keygen'][key]}")
         print(f"[smoke] keygen: {kg}")
+        if "write_s" in kg:
+            PK_CACHE["keygen_write_s"] = kg["write_s"]
+            PK_CACHE["pk"] = pk_file_sizes(os.path.join(tmp, "data",
+                                                        "bfv.pk.npz"))
+            print(f"[smoke] keygen write artifacts: {kg['write_s']:.3f}s; "
+                  f"pk {PK_CACHE['pk']}")
 
         base += ["--input", "bfv/bfv.in"]
         pv, c_pv, l_pv = attempt(
@@ -1348,6 +1464,14 @@ def main():
             print(f"[smoke]   prove stage {stage}: {dt:.4f}s")
         print(f"[smoke] proof length: {pv.get('proof_len')} bytes "
               f"(JAX protocol: {ref['proof_len']})")
+        load = pv.get("pk_load", {})
+        PK_CACHE["prove_load"] = load
+        print(f"[smoke] prove verb's load pk: {load.get('seconds')}s on the "
+              f"route {load} (re-deriving the assembly: "
+              f"{DERIVED_LOAD_S}s on NVIDIA H100 80GB HBM3, 700 W)")
+        if load.get("route") != "cached":
+            FAILURES.append(f"the prove verb's pk load took the route "
+                            f"{load}, not the cached one")
         if "snark" in pv:
             t0 = time.time()
             attempt("verify", check_verify, cli, base, pv["snark"], ref)
@@ -1480,6 +1604,7 @@ def main():
     print(json.dumps({"witgen64": dict(w64_line, device=smi)}))
     print(json.dumps({"mesh": dict(mesh_line, counts=c_mesh,
                                    stream_counts=c_mst, device=smi)}))
+    print(json.dumps({"pk_cache": dict(PK_CACHE, device=smi)}))
     line = {"kernels": [dict(
         name=k, route="cuda", source=SOURCE,
         replaces=KERNELS[k]["replaces"], launches=launches[k],

@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import os
 import time
 
 import numpy as np
@@ -27,7 +28,7 @@ from . import srs as SRS
 from .assembly import Assembly, assemble
 from .transcript import _point_bytes
 from ..trace.compile import trace_layout
-from ..utils.convert import proving_key_arrays
+from ..utils import convert as CV
 
 
 def find_delta(field: F.Field, min_order: int = 4096) -> int:
@@ -468,25 +469,90 @@ def load_vk(path: str) -> VerifyingKey:
     )
 
 
+# The port's deriving sources: the JAX package's six (zkfhe_tpu/backend/
+# keygen.py _asm_code_digest), then what else decides a circuit's layout or
+# the stored form: bfv's host polynomials (sizes), keccak's round
+# constants, the field (moduli, limb encoding, the builder's reduction of
+# constants) and the array form itself. ops/ntt.py and the kernels compute
+# witness values only, which no layout reads.
+ASM_SOURCES = ("trace/builder.py", "trace/compile.py", "trace/range_ops.py",
+               "backend/assembly.py", "models/bfv.py", "models/keccak.py",
+               "models/poly.py", "models/keccak_host.py", "ops/field.py",
+               "utils/convert.py")
+# the pk's keys that hold the assembly; the JAX package's load_pk looks
+# for its own ``asm_blob`` only, so it re-derives from a port-written pk
+ASM_PREFIX = "torch_asm_"
+ASM_DIGEST = ASM_PREFIX + "digest"
+
+# how the last load_pk got its assembly: {"route": "cached"}, or
+# {"route": "derived", "reason": "no cache" | "digest" | "k" | "shape"}
+LAST_PK_LOAD: dict = {}
+
+
+def _asm_code_digest(base: str | None = None) -> str:
+    """Digest of the port's sources that the Layout/Assembly derivation
+    and its stored form depend on (ASM_SOURCES, under ``base``, by default
+    this package). An assembly stored in a pk is used only while this
+    digest is unchanged."""
+    h = hashlib.blake2b(digest_size=16)
+    if base is None:
+        base = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for rel in ASM_SOURCES:
+        with open(os.path.join(base, rel), "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()
+
+
 def save_pk(pk: ProvingKey, path: str):
-    """The proving key's three coefficient arrays. The assembly is not
-    stored: it is a pure function of the circuit, and load_pk re-derives
-    it."""
+    """The proving key's three coefficient arrays, ``delta`` and ``k`` (as
+    the JAX package writes them), and the assembly as named arrays
+    (``utils/convert.assembly_arrays``) under ``torch_asm_`` keys with the
+    code digest that keys them. No pickle: ``np.load(path,
+    allow_pickle=False)`` reads every key."""
+    cache = {ASM_PREFIX + name: arr
+             for name, arr in CV.assembly_arrays(pk.asm).items()}
     np.savez_compressed(
         path,
         fixed_coeffs=F.to_numpy(pk.fixed_coeffs),
         sigma_coeffs=F.to_numpy(pk.sigma_coeffs),
         sigma_vals=F.to_numpy(pk.sigma_vals),
         delta=str(pk.vk.delta), k=pk.vk.k,
+        **{ASM_DIGEST: _asm_code_digest()}, **cache,
     )
+
+
+def _cached_assembly(path: str, k: int, vk: VerifyingKey):
+    """(the assembly stored in the pk, None) when the stored code digest,
+    k and shape match; else (None, the reason)."""
+    with np.load(path, allow_pickle=False) as d:
+        if ASM_DIGEST not in d.files:
+            return None, "no cache"
+        if str(d[ASM_DIGEST]) != _asm_code_digest():
+            return None, "digest"
+        if not int(d[ASM_PREFIX + "k"]) == k == vk.k:
+            return None, "k"
+        n = len(ASM_PREFIX)
+        asm = CV.assembly_from_arrays(
+            {name[n:]: d[name] for name in d.files
+             if name.startswith(ASM_PREFIX)})
+    if shape_of(asm) != vk.shape:
+        return None, "shape"
+    return asm, None
 
 
 def load_pk(path: str, vk: VerifyingKey, circuit_fn, example_inputs,
             device="cuda") -> ProvingKey:
-    """Read a pk written by save_pk here or by the JAX package. Only the
-    coefficient arrays are read (no pickle is loaded: a JAX-written pk's
-    ``asm_blob`` is skipped); the assembly is re-derived from the
-    circuit."""
-    k, arrays = proving_key_arrays(path, device)
-    asm = assemble(trace_layout(circuit_fn, example_inputs), k)
+    """Read a pk written by save_pk here or by the JAX package, without
+    pickle (a JAX-written pk's ``asm_blob`` is never loaded). The assembly
+    stored by save_pk is used while its code digest, k and shape (against
+    ``vk.shape``) match; otherwise it is re-derived from the circuit. The
+    route taken is in LAST_PK_LOAD."""
+    k, arrays = CV.proving_key_arrays(path, device)
+    asm, reason = _cached_assembly(path, k, vk)
+    LAST_PK_LOAD.clear()
+    if asm is None:
+        asm = assemble(trace_layout(circuit_fn, example_inputs), k)
+        LAST_PK_LOAD.update(route="derived", reason=reason)
+    else:
+        LAST_PK_LOAD.update(route="cached")
     return ProvingKey(vk=vk, asm=asm, **arrays)

@@ -145,7 +145,10 @@ def main(argv=None, out: dict | None = None):
         from .backend import prover as PV
         vk = KG.load_vk(vk_path)
         pk = KG.load_pk(pk_path, vk, circuit, inputs, device=device)
-        t0 = _stage("load pk", t0)
+        load = dict(KG.LAST_PK_LOAD, seconds=time.time() - t0)
+        route = load["route"] + (f", {load['reason']}" if "reason" in load
+                                 else "")
+        t0 = _stage(f"load pk (assembly {route})", t0)
         proof = PV.prove(pk, srs, circuit, inputs)
         for name, dt in PV.LAST_STAGES.items():
             print(f"[zkfhe]   prove {name}: {dt:.3f}s")
@@ -157,7 +160,7 @@ def main(argv=None, out: dict | None = None):
             instance=np.asarray([str(v) for v in F.decode(F.FR, instance)]))
         _stage("write proof", t0)
         out.update(proof_len=len(proof), snark=snark_path,
-                   stages=dict(PV.LAST_STAGES))
+                   stages=dict(PV.LAST_STAGES), pk_load=load)
         print(f"[zkfhe] prove OK -> {snark_path} ({len(proof)} bytes)")
         return 0
 
@@ -175,8 +178,10 @@ def main(argv=None, out: dict | None = None):
         json.dump(cfg, f, indent=1)
     KG.save_vk(pk.vk, vk_path)
     KG.save_pk(pk, pk_path)
+    out["write_s"] = time.time() - t0
     _stage("write artifacts", t0)
     out.update(vk_digest=KG.vk_digest(pk.vk).hex(),
+               pk_bytes=os.path.getsize(pk_path),
                num_fixed=len(pk.vk.fixed_commits),
                num_sigma=len(pk.vk.sigma_commits))
     print(f"[zkfhe] keygen OK -> {cfg_file}, {vk_path}, {pk_path}; "
