@@ -109,23 +109,37 @@ Phases, each printed with its time; any failure exits non-zero:
    ``sharded_msm`` on 256 SRS points and ``batched_witgen`` of the eight
    inputs; the mesh prove's wall time, stages, table-MSM calls, peak
    memory and launches are printed;
-17. timing: each kernel's wrapper again, at the shape and field of its
-   largest launch in phases 5-16 (bfly, which no module calls, at
+17. routes: the selectable commitment routes on the keygen's pk as phase
+   16 loaded it: ``PV.prove`` of bfv.in with seed s0 under
+   ``route="scanlag"`` (the scan MSM, advice over the Lagrange points),
+   ``tree="affine"`` (the table MSM's batch-inverted affine tree) and
+   ``tab_c=7`` (a table window other than ``pick_tab_c(8192)`` = 8), and
+   ``prove(mesh=Mesh([cuda:0] * 4), tree="affine")``, each byte-identical
+   to phase 9's serial proof; ``scripts/probe_msm_tiers.probe`` on the
+   k=13 table (both trees at the tiers 32, 52, 72 and 256, K=4 columns:
+   a cold and a warm time each, and the trees' points compared); an
+   in-process keygen of bfv_empty.in with the affine tree and window 7,
+   its vk digest the JAX package's. Each path's wall time (beside phase
+   9's serial prove), stages, MSM calls, peak memory and launches go into
+   the ``routes`` line;
+18. timing: each kernel's wrapper again, at the shape and field of its
+   largest launch in phases 5-17 (bfly, which no module calls, at
    bfly_dif's), on fresh random inputs, held to its plain version there
    too (exact equality), then timed with its plain version; plus one NTT
    of the same lanes through ``ntt.ntt``, whose time per stage shows what
    the stage's copies around ``bfly_dif`` cost;
-18. the ``matmul``, ``proof_paths``, ``k15``, ``nolag``, ``witgen64``,
-   ``mesh``, ``pk_cache`` and ``kernels`` JSON lines: per kernel, its
-   launches in phases 5-7, in the batch, the stream, the keccak phase,
-   the k=15 phase, the no-Lagrange keygen and prove, the batched witness
-   of 64 and the mesh prove and stream (each must be > 0 for mont_mul,
-   add, sub and bfly_dif, except bfly_dif in the keccak phase, whose
-   circuit runs no NTT; bfly's launches are those of its check in phase
-   3; on every path that calls mat_mul_mont, planes7 must launch twice
-   and plane_mm_redc once per call), its largest mismatch over phases 3,
-   4 and 17, its time, its plain version's time and its bound (the matmul's
-   kernels at their largest launch of phase 4).
+19. the ``matmul``, ``proof_paths``, ``k15``, ``nolag``, ``witgen64``,
+   ``mesh``, ``pk_cache``, ``routes`` and ``kernels`` JSON lines: per
+   kernel, its launches in phases 5-7, in the batch, the stream, the
+   keccak phase, the k=15 phase, the no-Lagrange keygen and prove, the
+   batched witness of 64, the mesh prove and stream and each run of the
+   routes phase (each must be > 0 for mont_mul, add, sub and bfly_dif,
+   except bfly_dif in the keccak phase, whose circuit runs no NTT; bfly's
+   launches are those of its check in phase 3; on every path that calls
+   mat_mul_mont, planes7 must launch twice and plane_mm_redc once per
+   call), its largest mismatch over phases 3, 4 and 18, its time, its
+   plain version's time and its bound (the matmul's kernels at their
+   largest launch of phase 4).
 
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 ``python3 chip_smoke.py --profile`` also prints, for mock, keygen, prove,
@@ -219,6 +233,16 @@ MESH_SHARDS = 4
 MESH_STREAM_B = 2
 MESH_COLS = 8
 MESH_MSM_POINTS = 256
+# the routes phase: a table window other than pick_tab_c(8192) = 8 for its
+# forced-window prove and keygen, and its paths' names with their options
+ROUTES_TAB_C = 7
+ROUTE_PATHS = {
+    "scanlag": dict(route="scanlag"),
+    "affine": dict(tree="affine"),
+    f"tab_c{ROUTES_TAB_C}": dict(tab_c=ROUTES_TAB_C),
+}
+ROUTE_RUNS = ("scanlag", "affine", "mesh_affine", f"tab_c{ROUTES_TAB_C}",
+              "keygen")
 # the table MSM's largest reduction tree over every path, (columns, lanes):
 # k=15's full-width calls, one column of W=53 windows (c=5) x 32768 rows
 TREE_SHAPE = (1, 53 * 32768)
@@ -1187,11 +1211,114 @@ def check_mesh(K, MX, MSM, dev, data_dir, params_dir, serial, ctx):
         return (all(torch.equal(a, b) for a, b in zip(v1, v2))
                 and torch.equal(i1, i2))
     check(f"batched_witgen of the {len(inputs)} inputs", witgen)
+    ctx.update(pk=pk, srs=srs, mesh=mesh)  # for the routes phase
     print(f"[smoke]   mesh prove {r_pv['wall_s']:.3f}s (phase 9's serial "
           f"prove: see its line), table-MSM calls {line['msm_calls']} "
           f"({line['msm_cols']} columns), peak {r_pv['peak_gb']:.3f} GB; "
           f"stream of {MESH_STREAM_B} {r_st['wall_s']:.3f}s")
     return r_pv, r_st, line
+
+
+def check_routes(K, MX, MSM, dev, data_dir, params_dir, serial, ctx, ref,
+                 serial_s):
+    """Phase 17: the selectable commitment routes on the keygen's pk (as
+    phase 16 loaded it, cached route): ``PV.prove`` of bfv.in (s0) under
+    each of ROUTE_PATHS, then ``prove(mesh=)`` on Mesh([cuda:0] * 4) with
+    the affine tree, each byte-identical to phase 9's serial proof; the
+    table MSM's tier probe (scripts/probe_msm_tiers) on the k=13 table;
+    an in-process keygen of bfv_empty.in with the affine tree and the
+    forced window, whose vk digest must be the JAX package's. Returns
+    each path's measurements and the JSON line."""
+    from zkfhe_tpu_torch.backend import keygen as KG
+    from zkfhe_tpu_torch.backend import prover as PV
+    from zkfhe_tpu_torch.backend import srs as SRS
+    from zkfhe_tpu_torch.models import bfv
+    from zkfhe_tpu_torch.parallel import sharding as SH
+    from zkfhe_tpu_torch.scripts import probe_msm_tiers as PT
+    inputs, seeds = ctx["inputs"], ctx["seeds"]
+    params = bfv.BfvParams()
+    circuit = bfv.make_bfv_circuit(params)
+    if "pk" in ctx:
+        pk, srs, mesh = ctx["pk"], ctx["srs"], ctx["mesh"]
+    else:  # the mesh phase failed before loading them
+        srs = SRS.load_or_generate(13, params_dir, dev)
+        vk = KG.load_vk(os.path.join(data_dir, "bfv.vk.npz"))
+        pk = KG.load_pk(os.path.join(data_dir, "bfv.pk.npz"), vk, circuit,
+                        inputs[0], device=dev)
+        require_cached("routes")
+        mesh = SH.Mesh([torch.device("cuda", 0)] * MESH_SHARDS)
+    n = 1 << 13
+    runs, line = {}, {"serial_s": serial_s, "paths": {}}
+
+    def prove_path(name, **opts):
+        proof, r = run_path(K, MX, MSM, f"routes: prove {name} (bfv.in, s0, "
+                            f"{opts})", lambda: PV.prove(
+                                pk, srs, circuit, inputs[0],
+                                rng_seed=seeds[0], **opts))
+        r["stages"] = dict(PV.LAST_STAGES)
+        runs[name] = r
+        equal = proof == serial
+        line["paths"][name] = dict(
+            options={k: v for k, v in opts.items() if k != "mesh"},
+            equal=equal, wall_s=r["wall_s"], stages=r["stages"],
+            msm=r["msm"], peak_gb=r["peak_gb"], counts=r["counts"])
+        verdict = "equal to" if equal else "DIFFERS from"
+        print(f"[smoke]   {name}: {r['wall_s']:.3f}s (phase 9's serial "
+              f"{serial_s:.3f}s), proof {verdict} the serial proof; stages "
+              f"{r['stages']}")
+        if not equal:
+            FAILURES.append(f"routes: the {name} proof differs from the "
+                            f"serial proof (s0)")
+
+    prove_path("scanlag", **ROUTE_PATHS["scanlag"])
+    if runs["scanlag"]["msm"]["msm_tab"]:
+        FAILURES.append("routes: the scanlag prove ran a table MSM")
+    prove_path("affine", **ROUTE_PATHS["affine"])
+    prove_path("mesh_affine", mesh=mesh, tree="affine")
+    line["paths"]["mesh_affine"]["shards"] = MESH_SHARDS
+
+    # the tier probe on the default k=13 table (the one the serial, affine
+    # and mesh proves used), before the forced window replaces it
+    table = KG.make_committer(srs, n, n).table
+    t0 = time.time()
+    times, equal = PT.probe(table, dev)
+    line["probe"] = dict(K=PT.K_COLS, reps=PT.REPS, n=n, c=table.c,
+                         trees_equal=equal, seconds=time.time() - t0,
+                         **times)
+    for key, r in times.items():
+        print(f"[smoke]   probe {key} (tree run {r['tree_run']}): cold "
+              f"{r['cold_ms']:.3f} ms, warm {r['warm_ms']:.3f} ms, "
+              f"{r['pts_per_s']:.0f} points/s")
+    if not all(equal.values()):
+        FAILURES.append(f"routes: the trees' points differ in the tier "
+                        f"probe {equal}")
+    del table  # freed when the forced window's table replaces it
+
+    name = f"tab_c{ROUTES_TAB_C}"
+    prove_path(name, **ROUTE_PATHS[name])
+    if srs._tab_cache.c != ROUTES_TAB_C:
+        FAILURES.append(f"routes: the forced-window prove used a table at "
+                        f"c={srs._tab_cache.c}")
+    empty = bfv.CircuitInput.from_json(os.path.join(
+        data_dir, "bfv", "bfv_empty.in")).to_arrays(params, dev)
+    stages = {}
+    opts = dict(tree="affine", tab_c=ROUTES_TAB_C)
+    kpk, r_kg = run_path(K, MX, MSM, f"routes: keygen (bfv_empty.in, "
+                         f"{opts})", lambda: KG.keygen(
+                             circuit, empty, 13, srs, stages=stages, **opts))
+    runs["keygen"] = r_kg
+    digest = KG.vk_digest(kpk.vk).hex()
+    del kpk
+    line["keygen"] = dict(options=opts, wall_s=r_kg["wall_s"],
+                          stages=stages, msm=r_kg["msm"],
+                          peak_gb=r_kg["peak_gb"], counts=r_kg["counts"],
+                          vk_digest_equal=digest == ref["keygen"]["vk_digest"])
+    print(f"[smoke]   keygen {opts}: {r_kg['wall_s']:.3f}s, stages {stages}; "
+          f"vk digest {digest}")
+    if digest != ref["keygen"]["vk_digest"]:
+        FAILURES.append(f"routes: keygen {opts} vk digest {digest} != JAX "
+                        f"{ref['keygen']['vk_digest']}")
+    return runs, line
 
 
 def check_keccak(K, MX, MSM, cli, dev):
@@ -1430,7 +1557,7 @@ def main():
     print(f"[smoke] mock: {mock}")
 
     tmp = tempfile.mkdtemp(prefix="zkfhe_smoke_")
-    paths = r_kc = k15 = nolag = w64 = mesh = None
+    paths = r_kc = k15 = nolag = w64 = mesh = routes = None
     try:
         os.makedirs(os.path.join(tmp, "data", "bfv"))
         for name in ("bfv_empty.in", "bfv.in"):
@@ -1510,6 +1637,12 @@ def main():
                        os.path.join(ROOT, "params"), serial, ctx) if ctx \
             else None
         print(f"[smoke] mesh phase: {time.time() - t0:.3f}s")
+        t0 = time.time()
+        routes = attempt("routes", check_routes, K, MX, MSM, dev,
+                         os.path.join(tmp, "data"),
+                         os.path.join(ROOT, "params"), serial, ctx, ref,
+                         paths["serial"][0]["wall_s"]) if ctx else None
+        print(f"[smoke] routes phase: {time.time() - t0:.3f}s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1539,7 +1672,16 @@ def main():
     r_mpv, r_mst, mesh_line = mesh or (None, None, None)
     c_mesh = r_mpv["counts"] if r_mpv else zero
     c_mst = r_mst["counts"] if r_mst else zero
+    r_routes, routes_line = routes or ({}, None)
+    c_routes = {name: r_routes[name]["counts"] if name in r_routes else zero
+                for name in ROUTE_RUNS}
     on_path = [k for k in KERNELS if k != "bfly"]
+    for name, c in c_routes.items():
+        want = on_path + (["mat_mul_mont"] if name != "keygen" else [])
+        for k in want:
+            if c[k] == 0:
+                FAILURES.append(f"kernel {k} never launched in routes "
+                                f"{name}")
     for ph, c, want in (("prove_batch", c_b, on_path + ["mat_mul_mont"]),
                         ("prove_stream", c_s, on_path + ["mat_mul_mont"]),
                         ("keccak", c_kc, ["mont_mul", "add", "sub"]),
@@ -1556,7 +1698,9 @@ def main():
     for ph, c in (("prove", c_pv), ("prove_batch", c_b),
                   ("prove_stream", c_s), ("k=15", c_k15),
                   ("no-Lagrange", c_nolag), ("mesh prove", c_mesh),
-                  ("mesh stream", c_mst)):
+                  ("mesh stream", c_mst)) + tuple(
+                      (f"routes {name}", c) for name, c in c_routes.items()
+                      if name != "keygen"):
         calls = c["mat_mul_mont"]
         want = {"planes7": 2 * calls, "plane_mm_redc": calls}
         if calls == 0 or any(c[k] != v for k, v in want.items()):
@@ -1564,10 +1708,12 @@ def main():
                             f"{ {k: c[k] for k in want} }, want {want}")
     # each kernel's largest launch over every driven path: the CLI verbs,
     # the serial, batch and stream proofs, keccak, k=15, the no-Lagrange
-    # keygen and prove, the batched witness of 64, the mesh prove and stream
+    # keygen and prove, the batched witness of 64, the mesh prove and
+    # stream, the routes' proves and keygen
     l_paths = [r["largest"] for r, _ in paths.values()] if paths else []
     l_paths += [r["largest"] for r in (r_kc, r_k15, r_nkg, r_npv, r_w64,
                                        r_mpv, r_mst) if r] + [l_k15m]
+    l_paths += [r["largest"] for r in r_routes.values()]
     largest = {}
     for k in KERNELS:
         seen = [v for v in [l.get(k) for l in [l_mock, l_kg, l_pv] + l_paths]
@@ -1592,7 +1738,9 @@ def main():
         launches_k15=c_k15["mat_mul_mont"],
         launches_nolag=c_nolag["mat_mul_mont"],
         launches_mesh=c_mesh["mat_mul_mont"],
-        launches_mesh_stream=c_mst["mat_mul_mont"], shapes=matmul)}))
+        launches_mesh_stream=c_mst["mat_mul_mont"],
+        **{f"launches_routes_{name}": c["mat_mul_mont"]
+           for name, c in c_routes.items()}, shapes=matmul)}))
     print(json.dumps({"proof_paths": {
         name: dict(proofs=nb, **{key: r[key] for key in (
             "wall_s", "per_proof_s", "peak_gb", "msm_calls_per_proof",
@@ -1605,6 +1753,7 @@ def main():
     print(json.dumps({"mesh": dict(mesh_line, counts=c_mesh,
                                    stream_counts=c_mst, device=smi)}))
     print(json.dumps({"pk_cache": dict(PK_CACHE, device=smi)}))
+    print(json.dumps({"routes": dict(routes_line, device=smi)}))
     line = {"kernels": [dict(
         name=k, route="cuda", source=SOURCE,
         replaces=KERNELS[k]["replaces"], launches=launches[k],
@@ -1615,6 +1764,7 @@ def main():
         launches_keccak=c_kc[k], launches_k15=c_k15[k],
         launches_nolag=c_nolag[k], launches_witgen64=c_w64[k],
         launches_mesh=c_mesh[k], launches_mesh_stream=c_mst[k],
+        **{f"launches_routes_{name}": c[k] for name, c in c_routes.items()},
         max_abs_err=errs[k], library_ms=None, **timing[k])
         for k in KERNELS]}
     # mat_mul_mont's kernels at their largest launch (most bound time) over
@@ -1634,7 +1784,9 @@ def main():
             launches_stream=c_s[k], launches_keccak=c_kc[k],
             launches_k15=c_k15[k], launches_nolag=c_nolag[k],
             launches_witgen64=c_w64[k], launches_mesh=c_mesh[k],
-            launches_mesh_stream=c_mst[k], max_abs_err=mx_errs[k],
+            launches_mesh_stream=c_mst[k],
+            **{f"launches_routes_{name}": c[k]
+               for name, c in c_routes.items()}, max_abs_err=mx_errs[k],
             library_ms=(matmul[label]["library_ms"] if k == "plane_mm_redc"
                         else None), at=f"{label} {sub}".strip(),
             shape=matmul[label]["shape"], **best))

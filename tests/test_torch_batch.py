@@ -399,8 +399,10 @@ def _stub_gen(log, steps_of, *, result_of):
     """A stand-in for prover._prove_gen: job i yields steps_of(i) times,
     logging (event, job) pairs, and returns (result_of(i), a timer)."""
     def gen(pk, srs, circuit_fn, inputs, rng_seed=None, rng=None,
-            coset_cache_mb=None, mesh=None, mesh_axis="chips"):
+            coset_cache_mb=None, mesh=None, mesh_axis="chips", route="tab",
+            tree="jacobian", tab_c=None):
         assert (mesh, mesh_axis) == (None, "chips")
+        assert (route, tree, tab_c) == ("tab", "jacobian", None)
         i = inputs["i"]
         log.append(("start", i, pk, rng_seed, rng, coset_cache_mb))
         for s in range(steps_of(i)):

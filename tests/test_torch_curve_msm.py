@@ -3,6 +3,7 @@ host reference MSM: edge lanes of the complete adds, table rows bit for
 bit (the pair-packed row index would still give valid curve points when
 off by one, so rows and results are compared, not just checked on-curve),
 and MSM results at n <= 64."""
+import hashlib
 import random
 
 import numpy as np
@@ -110,6 +111,61 @@ def test_msm_tab_row_offset(tables):
     got = TM.msm_tab(tt, TF.tensor(arr, "cpu"), max_bits=20, row_offset=off)
     assert _xy(TC.decode_points(got)) == _xy(
         [JM.msm_host(pts[off:off + rows], sc[0])])
+
+
+# the JAX package's _j_msm_tab(..., mode="affine") limbs on the tables
+# fixture and _scalars(24, 3, bits, 100 + bits), blake2b-128 of the limbs
+# as little-endian uint32 (the JAX affine tree's CPU compile takes about
+# half a minute a tier: the slow test below recomputes them)
+AFFINE_JAX = {32: "f576adb9dbd09e842539958554273f05",
+              52: "aa3afe2f6e6fbd724a7c5ddd4c0948b9",
+              72: "01ac544ae53b93003a5656fdddb7d2e6"}
+
+
+def _digest(a) -> str:
+    return hashlib.blake2b(TF.to_numpy(a).astype("<u4").tobytes(),
+                           digest_size=16).hexdigest()
+
+
+@pytest.mark.parametrize("bits", [32, 52, 72])
+def test_msm_tab_affine_matches_jax_limbs(tables, bits):
+    """The table MSM with the affine tree (Z is 0 or Montgomery 1): the
+    JAX package's limbs, and msm_host's points."""
+    pts, _, tt = tables
+    sc, arr = _scalars(len(pts), 3, bits, 100 + bits)
+    got = TM._msm_tab(tt.XY, TF.tensor(arr, "cpu"), tt.c, tt.windows, bits,
+                      0, "affine")
+    assert _digest(got) == AFFINE_JAX[bits]
+    assert _xy(TC.decode_points((got[0], got[1], got[2]))) == _xy(
+        [JM.msm_host(pts, s) for s in sc])
+
+
+@pytest.mark.slow
+def test_msm_tab_affine_jax_reference(tables):
+    """AFFINE_JAX recomputed with the JAX package, and the port's limbs
+    against the JAX ones directly."""
+    pts, jt, tt = tables
+    for bits in AFFINE_JAX:
+        _, arr = _scalars(len(pts), 3, bits, 100 + bits)
+        want = np.asarray(JM._j_msm_tab(jt.XY, jnp.asarray(arr), jt.c,
+                                        jt.windows, bits, 0, "affine"))
+        got = TM._msm_tab(tt.XY, TF.tensor(arr, "cpu"), tt.c, tt.windows,
+                          bits, 0, "affine")
+        assert np.array_equal(want, TF.to_numpy(got)), bits
+        assert _digest(want) == AFFINE_JAX[bits], bits
+
+
+def test_tree_mode_matches_jax(monkeypatch):
+    """The tree each tier reduces with: the JAX tree_mode under each
+    ZKFHE_MSM_TREE (affine below the full-width tier, Jacobian at it)."""
+    for tree in TM.TREES:
+        monkeypatch.setenv("ZKFHE_MSM_TREE", tree)
+        for bits in TM.TAB_TIERS:
+            assert TM.tree_mode(bits, tree) == JM.tree_mode(bits)
+    assert TM.tree_mode(256, "affine") == "jacobian"
+    assert TM.tree_mode(72, "affine") == "affine"
+    with pytest.raises(ValueError):
+        TM.tree_mode(72, "projective")
 
 
 def test_digits_and_helpers_match_jax():

@@ -1,6 +1,7 @@
 """Card-only checks of the port's CUDA kernels (the field kernels and
-mat_mul_mont's two) against their plain versions, and of the device mesh
-over distinct cards. They skip without a
+mat_mul_mont's two) against their plain versions, of the k=9 proof under
+each selectable commitment route against the JAX proof's bytes (one card),
+and of the device mesh over distinct cards. They skip without a
 CUDA device (the mesh checks without two); on a machine with one:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -236,3 +237,54 @@ def test_mesh_prove_over_cards_matches_one_card(cards):
     assert many == one
     inst = F.array_to_ints(TC.make_witgen_p0(circuit)(tin)[1])
     assert VF.verify(pk.vk, many, inst)
+
+
+class _Replay:
+    """The JAX draws of tests/fixtures/torch_prover_k9.npz, on the card."""
+
+    def __init__(self, pfx, dev):
+        self.fx, self.dev, self.i = pfx, dev, 0
+
+    def draw(self, rows, cols):
+        d = self.fx[f"draw_{self.i}"]
+        self.i += 1
+        assert d.shape == (20, rows, cols), (d.shape, rows, cols)
+        return F.tensor(d, self.dev)
+
+
+def test_route_proofs_k9_on_card_match_jax(cuda):
+    """The k=9 proof (tests/test_backend.py's circuit) under
+    route="scanlag", tree="affine" and a forced table window, each on
+    cuda:0 and on Mesh([cuda:0] * 4), with the JAX draws replayed: the JAX
+    proof's bytes of tests/fixtures/torch_prover_k9.npz. One card."""
+    import importlib.util
+    import os
+    from zkfhe_tpu_torch.backend import keygen as KG
+    from zkfhe_tpu_torch.backend import prover as PV
+    from zkfhe_tpu_torch.backend import srs as SRS
+    from zkfhe_tpu_torch.ops import msm as M
+    from zkfhe_tpu_torch.parallel import sharding as SH
+    from zkfhe_tpu_torch.trace import range_ops as R
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "fixtures")
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_prover_reference",
+        os.path.join(fixtures, "make_torch_prover_reference.py"))
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    pfx = np.load(os.path.join(fixtures, "torch_prover_k9.npz"))
+    srs = SRS.generate(gen.K, device=cuda)
+    tin = {"x": F.tensor(F.encode(F.FR, gen.XS), cuda),
+           "y": F.tensor(F.encode(F.FR, gen.YS), cuda)}
+    circuit = gen.make_circuit(R)
+    pk = KG.keygen(circuit, tin, gen.K, srs)
+    forced = M.pick_tab_c(1 << gen.K) + 1
+    mesh = SH.Mesh([cuda] * 4)
+    for opts in ({"route": "scanlag"}, {"tree": "affine"},
+                 {"tab_c": forced}):
+        for m in (None, mesh):
+            replay = _Replay(pfx, cuda)
+            proof = PV.prove(pk, srs, circuit, tin, rng=replay, mesh=m,
+                             **opts)
+            assert replay.i == int(pfx["num_draws"])
+            assert proof == bytes(pfx["proof"]), (opts, m)

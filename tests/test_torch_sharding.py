@@ -337,7 +337,9 @@ def test_prove_stream_passes_the_mesh(monkeypatch):
     seen = []
 
     def gen(pk, srs, circuit_fn, inputs, rng_seed=None, rng=None,
-            coset_cache_mb=None, mesh=None, mesh_axis="chips"):
+            coset_cache_mb=None, mesh=None, mesh_axis="chips", route="tab",
+            tree="jacobian", tab_c=None):
+        assert (route, tree, tab_c) == ("tab", "jacobian", None)
         seen.append((inputs, mesh, mesh_axis))
         yield
         return b"p%d" % inputs, None

@@ -37,7 +37,7 @@ from ..utils.profiling import StageTimer
 from . import protocol as PROTO
 from . import prover as PV
 from .assembly import EXT_FACTOR, LOOKUP_GROUP, PERM_CHUNK
-from .keygen import ProvingKey, make_committer, vk_digest
+from .keygen import ProvingKey, check_options, make_committer, vk_digest
 from .srs import SRS
 from .transcript import Transcript
 
@@ -175,7 +175,9 @@ def _check_device(inputs_list, dev):
 
 
 def prove_batch(pk: ProvingKey, srs: SRS, circuit_fn, inputs_list,
-                rng_seeds=None, rngs=None) -> list[bytes]:
+                rng_seeds=None, rngs=None, route: str = "tab",
+                tree: str = "jacobian", tab_c: int | None = None
+                ) -> list[bytes]:
     """Prove B independent instances against one proving key, batched on
     the proof axis, on the device of the pk's tensors. Returns the proofs'
     bytes in input order.
@@ -184,7 +186,16 @@ def prove_batch(pk: ProvingKey, srs: SRS, circuit_fn, inputs_list,
     (20, rows, cols) Montgomery limbs on that device, as ``prove(rng=)``),
     else a ``prover._ProofRng`` per proof seeded by ``rng_seeds[i]``
     (os.urandom when None). Proof i equals ``prove(..., rng_seed=
-    rng_seeds[i])`` (or ``rng=rngs[i]``) byte for byte."""
+    rng_seeds[i])`` (or ``rng=rngs[i]``) byte for byte.
+
+    ``tree`` and ``tab_c`` set the table MSM's reduction tree and window
+    width (keygen.Committer). The batch folds its proofs into table-MSM
+    commits, so ``route`` must be "tab": the scan routes raise, as the
+    JAX package's ``prove_batch`` asserts a table committer."""
+    check_options(route, tree, tab_c)
+    if route != "tab":
+        raise ValueError(f"prove_batch commits through the table MSM; "
+                         f"route {route!r} is for prove and prove_stream")
     B = len(inputs_list)
     if B < 1:
         raise ValueError("prove_batch needs at least one input")
@@ -226,7 +237,7 @@ def prove_batch(pk: ProvingKey, srs: SRS, circuit_fn, inputs_list,
     for tr in trs:
         tr.common_bytes(digest)
 
-    committer = make_committer(srs, n, u)
+    committer = make_committer(srs, n, u, tree=tree, tab_c=tab_c)
 
     def commit_batch(evals_b, col_bits=None, split_tail=True):
         """(L, B, K, n) Montgomery values -> per-proof point lists through

@@ -97,6 +97,28 @@ def _stacked_add(a, b):
                        dim=0)
 
 
+# the commitment routes (the JAX package's ZKFHE_MSM, ZKFHE_NO_LAGRANGE):
+# "tab", the fixed-base table MSM (Committer, the default); "scanlag"
+# (ZKFHE_MSM=scan or scanlag), the scan MSM with advice columns committed
+# over the Lagrange points (commit_columns_lagrange) and every other column
+# over the coefficients (commit_columns); "scan" (either of those with
+# ZKFHE_NO_LAGRANGE=1), every column through commit_columns. Every route
+# commits the same group elements.
+ROUTES = ("tab", "scanlag", "scan")
+
+
+def check_options(route: str = "tab", tree: str = "jacobian",
+                  tab_c: int | None = None):
+    """Raise ValueError for an unknown route or tree or a window width
+    outside ops/msm.check_c's range, before any work is done."""
+    if route not in ROUTES:
+        raise ValueError(f"unknown commitment route {route!r}; one of "
+                         f"{ROUTES}")
+    M.check_tree(tree)
+    if tab_c is not None:
+        M.check_c(tab_c)
+
+
 class Committer:
     """Fixed-base commitment engine: every commitment is a gather + log-
     depth tree reduction against ONE table of shifted multiples of the
@@ -104,28 +126,40 @@ class Committer:
     (quantised to ops/msm.TAB_TIERS) gather only their low windows. With a
     ``mesh`` (parallel/sharding.Mesh) every table MSM splits the point axis
     over the mesh's devices (sharding.sharded_msm_tab): the same points.
-    ``mesh_axis`` names the mesh's one axis, as in JAX."""
+    ``mesh_axis`` names the mesh's one axis, as in JAX. ``tree`` is every
+    table MSM's reduction tree (ops/msm.tree_mode: the full-width tier
+    stays Jacobian) and ``tab_c`` the table's window width
+    (ops/msm.pick_tab_c(n) when None); neither changes a point."""
 
     def __init__(self, srs: "SRS.SRS", n: int, u: int, mesh=None,
-                 mesh_axis: str = "chips"):
+                 mesh_axis: str = "chips", tree: str = "jacobian",
+                 tab_c: int | None = None):
         assert srs.g1_lag is not None, "SRS lacks Lagrange-basis points"
         self.srs = srs
         self.n = n
         self.u = u
         SH.mesh_size(mesh, mesh_axis)  # a KeyError for another axis name
         self.mesh = mesh
+        self.tree = M.check_tree(tree)
+        self.tab_c = M.pick_tab_c(n) if tab_c is None else M.check_c(tab_c)
         self.tier_cap, self.full_cap = _batch_caps(n)
         self._tab = None
 
     @property
     def table(self) -> M.PointTable:
+        """The table of the SRS's first n Lagrange points at window
+        width tab_c, kept on the SRS for the next Committer of that n
+        and c (one table at a time)."""
         if self._tab is None:
             cached = getattr(self.srs, "_tab_cache", None)
-            if cached is not None and cached.n == self.n:
+            if (cached is not None and cached.n == self.n
+                    and cached.c == self.tab_c):
                 self._tab = cached
             else:
+                self.srs._tab_cache = None  # freed before the next is built
                 X, Y = self.srs.g1_lag
-                self._tab = M.build_table((X[:, : self.n], Y[:, : self.n]))
+                self._tab = M.build_table((X[:, : self.n], Y[:, : self.n]),
+                                          c=self.tab_c)
                 self.srs._tab_cache = self._tab
         return self._tab
 
@@ -140,10 +174,11 @@ class Committer:
             # the point axis split over the mesh: each shard gathers for
             # the rows of the range that it holds
             jac = SH.sharded_msm_tab(self.table, std, self.mesh,
-                                     max_bits=max_bits, row_offset=row_offset)
+                                     max_bits=max_bits, row_offset=row_offset,
+                                     tree=self.tree)
             return SH.put(torch.stack(jac), std.device)
         return M.msm_tab_stacked(self.table, std, max_bits=max_bits,
-                                 row_offset=row_offset)
+                                 row_offset=row_offset, tree=self.tree)
 
     @staticmethod
     def _decode(jac) -> list:
@@ -239,13 +274,19 @@ class Committer:
 
 
 def make_committer(srs: "SRS.SRS", n: int, u: int, mesh=None,
-                   mesh_axis: str = "chips") -> "Committer | None":
-    """Committer for the table-MSM path (split over ``mesh`` when given), or
-    None when the SRS has no Lagrange-basis points (callers then commit
-    with commit_columns, on one device)."""
-    if srs.g1_lag is None:
+                   mesh_axis: str = "chips", route: str = "tab",
+                   tree: str = "jacobian", tab_c: int | None = None
+                   ) -> "Committer | None":
+    """Committer for the table-MSM path (split over ``mesh`` when given,
+    with ``tree`` and ``tab_c`` as for Committer), or None under the routes
+    "scanlag" and "scan" (ROUTES) and when the SRS has no Lagrange-basis
+    points: callers then commit with commit_columns_lagrange or
+    commit_columns, on one device."""
+    check_options(route, tree, tab_c)
+    if route != "tab" or srs.g1_lag is None:
         return None
-    return Committer(srs, n, u, mesh=mesh, mesh_axis=mesh_axis)
+    return Committer(srs, n, u, mesh=mesh, mesh_axis=mesh_axis, tree=tree,
+                     tab_c=tab_c)
 
 
 def commit_columns_lagrange(lag_pts, evals_mont, u: int,
@@ -359,8 +400,13 @@ class _Stages:
 
 
 def keygen(circuit_fn, example_inputs, k: int, srs: SRS.SRS,
-           stages: dict | None = None) -> ProvingKey:
-    """stages: if a dict, receives the seconds each keygen stage took."""
+           stages: dict | None = None, route: str = "tab",
+           tree: str = "jacobian", tab_c: int | None = None) -> ProvingKey:
+    """stages: if a dict, receives the seconds each keygen stage took.
+    route, tree, tab_c: the commitment route and the table MSM's options
+    (make_committer); outside "tab" the fixed and sigma columns go through
+    commit_columns. The vk is the same under every route."""
+    check_options(route, tree, tab_c)
     dev = srs.g1[0].device
     stage = _Stages(stages, dev)
     layout = trace_layout(circuit_fn, example_inputs)
@@ -399,7 +445,8 @@ def keygen(circuit_fn, example_inputs, k: int, srs: SRS.SRS,
     stage("sigma columns")
 
     # ---- commitments -----------------------------------------------------
-    committer = make_committer(srs, n, asm.u)
+    committer = make_committer(srs, n, asm.u, route=route, tree=tree,
+                               tab_c=tab_c)
     if committer is not None:
         committer.table  # noqa: B018  (built here so its time is its own)
         stage("table")

@@ -46,8 +46,8 @@ from ..utils.profiling import StageTimer
 from . import protocol as PROTO
 from . import verifier as VF
 from .assembly import EXT_FACTOR, LOOKUP_GROUP, PERM_CHUNK
-from .keygen import (ProvingKey, commit_columns, make_committer,
-                     vk_digest)
+from .keygen import (ProvingKey, check_options, commit_columns,
+                     commit_columns_lagrange, make_committer, vk_digest)
 from .srs import SRS
 from .transcript import Transcript
 
@@ -713,9 +713,21 @@ def _term_plan_of(pk: ProvingKey, dstate: dict, nd: int = 1):
     return plans[nd]
 
 
+def _commit_advice_scan(srs: SRS, dom, u: int, route: str, evals):
+    """Advice commitments without the table committer: under "scanlag",
+    with Lagrange points in the SRS, commit_columns_lagrange of the
+    evaluations (widths measured from the values, as in the JAX package);
+    otherwise commit_columns of their iNTT. The same points either way."""
+    if route == "scanlag" and srs.g1_lag is not None:
+        return commit_columns_lagrange(srs.g1_lag, evals, u)
+    return commit_columns(srs, N.intt(dom, evals))
+
+
 def prove(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
           rng_seed: bytes | None = None, rng=None,
-          debug: bool = False, mesh=None, mesh_axis: str = "chips") -> bytes:
+          debug: bool = False, mesh=None, mesh_axis: str = "chips",
+          route: str = "tab", tree: str = "jacobian",
+          tab_c: int | None = None) -> bytes:
     """Produce a proof on the device of the pk's tensors.
 
     With ``mesh`` (parallel/sharding.Mesh) the hot stages are split over
@@ -733,10 +745,19 @@ def prove(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
     ``debug=True`` also checks every constraint term on the domain, the
     quotient's tail and the verifier's identity at x, prints what it finds
     as the JAX package does and keeps it in ``LAST_DEBUG``; the proof is
-    the same either way."""
+    the same either way.
+
+    ``route`` picks how columns are committed (keygen.ROUTES): "tab", the
+    fixed-base table MSM (split over the mesh); "scanlag", the scan MSM
+    with advice over the Lagrange points and the other columns over their
+    coefficients; "scan", the scan MSM over coefficients throughout. The
+    two scan routes run on ``mesh.devices[0]``'s device alone, as in JAX.
+    ``tree`` and ``tab_c`` set the table MSM's reduction tree and window
+    width (keygen.Committer). Every choice gives the same proof."""
     report = {} if debug else None
     gen = _prove_gen(pk, srs, circuit_fn, inputs, rng_seed=rng_seed, rng=rng,
-                     debug=report, mesh=mesh, mesh_axis=mesh_axis)
+                     debug=report, mesh=mesh, mesh_axis=mesh_axis,
+                     route=route, tree=tree, tab_c=tab_c)
     try:
         while True:
             next(gen)
@@ -753,7 +774,8 @@ def prove(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
 def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
                rng_seed: bytes | None = None, rng=None,
                coset_cache_mb: int | None = None, debug: dict | None = None,
-               mesh=None, mesh_axis: str = "chips"):
+               mesh=None, mesh_axis: str = "chips", route: str = "tab",
+               tree: str = "jacobian", tab_c: int | None = None):
     """Generator form of prove(): yields where device work (MSMs, NTTs,
     term batches) has been enqueued but its device-to-host transfer and
     the transcript hashing that follows have not happened yet. prove()
@@ -763,7 +785,8 @@ def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
     proofs in flight). Returns (the proof's bytes, its StageTimer), whose
     marks never wait for the device. debug: a dict that receives the
     debug report (_debug_terms_on_domain, _debug_at_x; None skips them).
-    mesh, mesh_axis: as for prove()."""
+    mesh, mesh_axis, route, tree, tab_c: as for prove()."""
+    check_options(route, tree, tab_c)
     asm = pk.asm
     k, n, u = asm.k, asm.n, asm.u
     dev = pk.fixed_coeffs.device
@@ -800,19 +823,21 @@ def _prove_gen(pk: ProvingKey, srs: SRS, circuit_fn, inputs,
     adv_p0 = (_j_advice_p0(p0, n, u, values0_p0, scatter_idx[CTX_P0],
                            blind[:, :p0]) if p0 else None)
 
-    committer = make_committer(srs, n, u, mesh=mesh, mesh_axis=mesh_axis)
+    committer = make_committer(srs, n, u, mesh=mesh, mesh_axis=mesh_axis,
+                               route=route, tree=tree, tab_c=tab_c)
 
-    # without Lagrange-basis points (committer None) every commitment is
-    # commit_columns over the coefficients: an iNTT for evaluation-form
-    # columns, then the scan MSM, run eagerly
+    # without the table committer (the scan routes, or an SRS without
+    # Lagrange-basis points) every commitment runs eagerly on the scan MSM:
+    # advice as _commit_advice_scan, every other column as commit_columns
+    # over the coefficients (an iNTT for evaluation-form columns)
     def commit_evals_async(evals, col_bits=None):
         """Advice commitment (width-tiered main rows + shared blind tail);
         col_bits = STATIC per-column bounds (Assembly.col_bits), so the
-        tier choice never reads witness magnitudes."""
+        table path's tier choice never reads witness magnitudes."""
         if committer is not None:
             return committer.commit_values(evals, col_bits=col_bits,
                                            sync=False)
-        pts = commit_columns(srs, N.intt(dom, evals))
+        pts = _commit_advice_scan(srs, dom, u, route, evals)
         return lambda: pts
 
     def commit_vals_async(vals):

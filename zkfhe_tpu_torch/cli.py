@@ -10,7 +10,12 @@ params/kzg_bn254_{k}[.lag].npz (read), data/{name}.vk.npz and
 data/{name}.pk.npz (written by keygen, read by prove), data/{name}.snark.npz
 (written by prove: ``proof`` and ``instance``; read by verify).
 ``--device`` picks the torch device (default ``cuda``); verify runs on the
-host.
+host. keygen and prove take the commitment route (``--msm``: ``tab``, the
+table MSM, by default; ``scanlag``; ``scan``), the table MSM's reduction
+tree (``--msm-tree``) and a forced table window width (``--tab-c``), which
+the JAX package reads from its environment (backend/keygen.ROUTES maps
+them); mock and verify ignore them. Every choice gives the same vk and
+proof.
 """
 from __future__ import annotations
 
@@ -46,6 +51,18 @@ def build_parser():
     p.add_argument("--b", type=int, default=19, help="BFV noise bound B")
     p.add_argument("--device", default="cuda",
                    help="torch device for the device work (cuda or cpu)")
+    p.add_argument("--msm", default="tab", choices=["tab", "scanlag", "scan"],
+                   help="keygen/prove commitment route: the table MSM, the "
+                        "scan MSM with advice over the Lagrange points, or "
+                        "the scan MSM over coefficients")
+    p.add_argument("--msm-tree", default="jacobian",
+                   choices=["jacobian", "affine"],
+                   help="keygen/prove table-MSM reduction tree (the "
+                        "full-width tier stays jacobian)")
+    p.add_argument("--tab-c", type=int, default=None, metavar="N",
+                   choices=range(1, 9),
+                   help="keygen/prove table window width, 1-8 (default: "
+                        "the widest that fits msm.TAB_MB)")
     p.add_argument("command", choices=["mock", "keygen", "prove", "verify"])
     return p
 
@@ -138,6 +155,7 @@ def main(argv=None, out: dict | None = None):
               f"{out['trace_digest']}")
         return 0
 
+    routes = dict(route=args.msm, tree=args.msm_tree, tab_c=args.tab_c)
     srs = SRS.load_or_generate(args.degree, args.params_path, device)
     t0 = _stage("srs", t0)
 
@@ -149,7 +167,7 @@ def main(argv=None, out: dict | None = None):
         route = load["route"] + (f", {load['reason']}" if "reason" in load
                                  else "")
         t0 = _stage(f"load pk (assembly {route})", t0)
-        proof = PV.prove(pk, srs, circuit, inputs)
+        proof = PV.prove(pk, srs, circuit, inputs, **routes)
         for name, dt in PV.LAST_STAGES.items():
             print(f"[zkfhe]   prove {name}: {dt:.3f}s")
         t0 = _stage("prove", t0)
@@ -165,7 +183,8 @@ def main(argv=None, out: dict | None = None):
         return 0
 
     stages = {}
-    pk = KG.keygen(circuit, inputs, args.degree, srs, stages=stages)
+    pk = KG.keygen(circuit, inputs, args.degree, srs, stages=stages,
+                   **routes)
     for name, dt in stages.items():
         print(f"[zkfhe]   keygen {name}: {dt:.3f}s")
     t0 = _stage("keygen", t0)

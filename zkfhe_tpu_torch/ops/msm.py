@@ -12,7 +12,9 @@ Two device paths and two host references:
   window w and multiple m in 1..2^(c-1) the table holds
   T[i, w, m] = m * 2^(c*w) * P_i in affine form. A commitment is the sum
   over all (window, point) lanes of one gathered entry (signed digit ->
-  +-T[i, w, |d|]), reduced by a log-depth tree of complete Jacobian adds;
+  +-T[i, w, |d|]), reduced by a log-depth tree of complete Jacobian adds
+  (or, when asked for below the full-width tier, of batch-inverted affine
+  adds: ``tree_mode``);
 * ``msm_host`` (naive, for tests) and ``msm_host_pippenger`` (the
   verifier's python-int fallback when the native core is unavailable).
 
@@ -229,8 +231,16 @@ def column_max_bits(std) -> list:
 
 # Window width / table-memory trade (see the JAX package): table bytes =
 # n * (ceil(256/c)+1) * 2^(c-1) * 80. pick_tab_c chooses the largest c whose
-# table fits TAB_MB (c=8 at n=8192: 2.8 GB).
+# table fits TAB_MB (c=8 at n=8192: 2.8 GB); build_table(c=) forces another
+# (the JAX package's ZKFHE_TAB_C).
 TAB_MB = 3400
+
+
+def check_c(c: int) -> int:
+    """A forced table window width: signed_digits takes 1 <= c <= 8."""
+    if not isinstance(c, int) or not 1 <= c <= 8:
+        raise ValueError(f"table window width {c!r}: want 1 <= c <= 8")
+    return c
 
 
 def pick_tab_c(n: int) -> int:
@@ -245,6 +255,27 @@ def pick_tab_c(n: int) -> int:
 
 # width tiers for the table path: scalar-bit bound -> window count
 TAB_TIERS = (32, 52, 72, 256)
+
+# the table MSM's reduction trees (the JAX package's ZKFHE_MSM_TREE):
+# complete Jacobian adds (the default) or batch-inverted affine adds
+TREES = ("jacobian", "affine")
+
+
+def check_tree(tree: str) -> str:
+    if tree not in TREES:
+        raise ValueError(f"unknown table-MSM tree {tree!r}; one of {TREES}")
+    return tree
+
+
+def tree_mode(max_bits: int = 0, tree: str = "jacobian") -> str:
+    """The tree a table MSM at the tier ``max_bits`` reduces with when
+    ``tree`` is asked for. As in the JAX package, the full-width tier
+    (256) always takes the Jacobian tree: an affine request there means
+    Jacobian, so the blind tails and full-width columns of every route
+    reduce alike."""
+    if check_tree(tree) == "affine" and max_bits >= 256:
+        return "jacobian"
+    return tree
 
 
 def tab_tier_bits(max_bits: int) -> int:
@@ -317,11 +348,17 @@ def build_table(points, max_bits: int = 256, c: int | None = None
                       windows=W, c=c)
 
 
-def _msm_tab(tabXY, scalars, c, W_full, max_bits, row_offset):
+def _msm_tab(tabXY, scalars, c, W_full, max_bits, row_offset,
+             tree: str = "jacobian"):
     """Gather + tree-reduce MSM against a PointTable.
 
     scalars: (L, K, rows) standard-form limbs; logical point i for column
-    entry j is row_offset + j. Returns the stacked (3, L, K) Jacobian."""
+    entry j is row_offset + j. tree: "jacobian" (complete Jacobian adds,
+    ``curve.tree_reduce_points_halves``) or "affine" (batch-inverted
+    affine adds, ``curve.tree_reduce_affine``), used as given (callers
+    pass ``tree_mode``'s choice). Returns the stacked (3, L, K)
+    Jacobian."""
+    check_tree(tree)
     L_ = scalars.shape[0]
     dev = scalars.device
     M = 1 << (c - 1)
@@ -347,6 +384,10 @@ def _msm_tab(tabXY, scalars, c, W_full, max_bits, row_offset):
     full = torch.stack([lo, hi], dim=1).reshape(2 * L_, K, W * rows)
     gx, gy = full[:L_], full[L_:]
     gy = F.select(neg, F.neg(FQ, gy), gy)
+    if tree == "affine":
+        # the gathered X stands in for Z: live carries the flags
+        return torch.stack(C.tree_reduce_affine((gx, gy, gx), flags=live),
+                           dim=0)
     one_m = F.const(FQ, FQ.to_mont_int(1), (K, W * rows), dev)
     gz = F.select(live, one_m, F.zero((K, W * rows), dev))
     return torch.stack(
@@ -354,19 +395,21 @@ def _msm_tab(tabXY, scalars, c, W_full, max_bits, row_offset):
 
 
 def msm_tab_stacked(table: PointTable, scalars, max_bits: int = 256,
-                    row_offset: int = 0):
+                    row_offset: int = 0, tree: str = "jacobian"):
     """msm_tab returning the stacked (3, L, K) Jacobian tensor."""
     mb = tab_tier_bits(max_bits)
+    mode = tree_mode(mb, tree)
     return _msm_tab(table.XY, scalars, table.c, table.windows, mb,
-                    row_offset)
+                    row_offset, mode)
 
 
 def msm_tab(table: PointTable, scalars, max_bits: int = 256,
-            row_offset: int = 0):
+            row_offset: int = 0, tree: str = "jacobian"):
     """MSM of (L, K, rows) standard-form scalars against table points
     [row_offset, row_offset+rows). Returns Jacobian (X, Y, Z) each (L, K).
-    max_bits is quantised to TAB_TIERS."""
-    out = msm_tab_stacked(table, scalars, max_bits, row_offset)
+    max_bits is quantised to TAB_TIERS; tree as for tree_mode (the
+    points are the same under either tree, the Jacobian limbs not)."""
+    out = msm_tab_stacked(table, scalars, max_bits, row_offset, tree)
     return out[0], out[1], out[2]
 
 

@@ -34,7 +34,8 @@ from ..backend import prover as PV
 
 def prove_stream(pk, srs, circuit_fn, inputs_list, rng_seeds=None,
                  rngs=None, depth: int = 2, skew: int = 4, mesh=None,
-                 mesh_axis: str = "chips"):
+                 mesh_axis: str = "chips", route: str = "tab",
+                 tree: str = "jacobian", tab_c: int | None = None):
     """Prove independent instances as a `depth`-deep software pipeline.
 
     inputs_list: list of input dicts (each as for prover.prove), or, when
@@ -47,7 +48,8 @@ def prove_stream(pk, srs, circuit_fn, inputs_list, rng_seeds=None,
     coincide. Each proof's coset-cache budget is COSET_CACHE_MB / depth,
     so that the stream keeps a serial prove's device-memory envelope.
     mesh, mesh_axis: every proof's hot stages split over the mesh, as for
-    prover.prove().
+    prover.prove(). route, tree, tab_c: every proof's commitment route and
+    table-MSM options, as for prover.prove().
     Returns the proofs' bytes in input order.
     """
     jobs = list(inputs_list)
@@ -73,7 +75,8 @@ def prove_stream(pk, srs, circuit_fn, inputs_list, rng_seeds=None,
             pk_i, srs_i, cf_i, inp_i,
             rng_seed=None if rng_seeds is None else rng_seeds[i],
             rng=None if rngs is None else rngs[i], coset_cache_mb=cache_mb,
-            mesh=mesh, mesh_axis=mesh_axis)
+            mesh=mesh, mesh_axis=mesh_axis, route=route, tree=tree,
+            tab_c=tab_c)
 
     while next_job < nj or live:
         youngest_ok = last_admitted is None or last_admitted[2] >= skew

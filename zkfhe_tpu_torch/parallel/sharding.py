@@ -196,7 +196,8 @@ def _table_shards(table: M.PointTable, mesh: Mesh) -> list:
 
 
 def sharded_msm_tab(table: M.PointTable, scalars, mesh: Mesh,
-                    max_bits: int = 256, row_offset: int = 0):
+                    max_bits: int = 256, row_offset: int = 0,
+                    tree: str = "jacobian"):
     """Fixed-base table MSM (ops/msm.msm_tab) with the POINT axis split over
     the mesh: the prover's commitments under a mesh.
 
@@ -206,8 +207,9 @@ def sharded_msm_tab(table: M.PointTable, scalars, mesh: Mesh,
     rows of its points [d*n/nd, (d+1)*n/nd) only, for the scalars of the
     points it holds; a shard that holds none of them does no work and adds
     nothing. Over all n points (row_offset 0) every shard runs and the
-    Jacobian limbs are the JAX package's. Returns Jacobian (X, Y, Z), each
-    (L, K), on devices[0]."""
+    Jacobian limbs are the JAX package's. Each shard reduces with
+    ``msm.tree_mode(tier, tree)``'s tree, as JAX's ``_msm_tab_fn`` does.
+    Returns Jacobian (X, Y, Z), each (L, K), on devices[0]."""
     nd = len(mesh.devices)
     rows = scalars.shape[2]
     if rows < 1 or row_offset < 0 or row_offset + rows > table.n:
@@ -215,6 +217,7 @@ def sharded_msm_tab(table: M.PointTable, scalars, mesh: Mesh,
                          f"{row_offset + rows}) for a table of {table.n}")
     ns = _blocks(table.n, nd, "the table's point axis")
     mb = M.tab_tier_bits(max_bits)
+    mode = M.tree_mode(mb, tree)
     parts = []
     for d, (dev, txy) in enumerate(zip(mesh.devices,
                                        _table_shards(table, mesh))):
@@ -225,7 +228,7 @@ def sharded_msm_tab(table: M.PointTable, scalars, mesh: Mesh,
         with on(dev):
             sc = put(scalars[:, :, lo - row_offset:hi - row_offset], dev)
             parts.append(M._msm_tab(txy, sc, table.c, table.windows, mb,
-                                    lo - d * ns))
+                                    lo - d * ns, mode))
     out = _gather_combine_points(parts, mesh)
     return out[0], out[1], out[2]
 
