@@ -7,6 +7,11 @@ its first 512 Lagrange points: the committed values are then not a valid
 k=9 key, but both packages compute the same function of the same points,
 so the vk digests must be equal.
 
+The JAX package's keys are read from tests/fixtures/torch_keygen_k9.npz
+(make_torch_keygen_reference.py, about ten minutes of JAX keygen on the
+CPU; the ``slow`` test recomputes it): the bytes of its pk and vk files,
+its vk digest and its assembly's config.
+
 The pk's stored assembly (``torch_asm_`` keys, ``utils/convert.
 assembly_arrays``): load_pk takes it without running the circuit, equal
 field by field to a fresh derivation, and re-derives, naming the reason,
@@ -15,6 +20,7 @@ package reads the other's pk. Those tests need only the port's half of
 the keys (``port_keys``); the array form's round trips of keccak
 circuits and of 254-bit constants need no keys."""
 import dataclasses
+import importlib.util
 import json
 import os
 import shutil
@@ -25,7 +31,6 @@ import pytest
 import torch
 
 from zkfhe_tpu.backend import keygen as JKG
-from zkfhe_tpu.backend import srs as JSRS
 from zkfhe_tpu.ops import field as JF
 from zkfhe_tpu.trace import range_ops as JR
 from zkfhe_tpu_torch.backend import assembly as TA
@@ -44,6 +49,9 @@ pytestmark = pytest.mark.e2e
 
 K = 9
 XS, YS = [3, 5, 250000000], [4, 6, 260000000]
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "fixtures")
+FIXTURE = os.path.join(FIXTURES, "torch_keygen_k9.npz")
 
 # one intra-op thread: the suite runs several workers on a few cores
 torch.set_num_threads(1)
@@ -83,21 +91,41 @@ def port_keys():
     return tpk, tsrs
 
 
+def _generator(name="make_torch_keygen_reference"):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(FIXTURES, name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_vk_bytes(vk_bytes, load_vk):
+    return _generator("make_torch_prover_reference").load_vk_bytes(
+        vk_bytes, load_vk)
+
+
 @pytest.fixture(scope="module")
-def keys(port_keys):
-    jpk = JKG.keygen(make_circuit(JR), _jin(), K,
-                     JSRS.load_or_generate(10, "params"))
-    return (jpk,) + port_keys
+def jax_keys(tmp_path_factory):
+    """The JAX package's keys: the path of its pk file, the bytes of its vk
+    file, its vk digest and its assembly's config."""
+    pk_path = tmp_path_factory.mktemp("jax_keys") / "c.pk.npz"
+    with np.load(FIXTURE) as d:
+        pk_path.write_bytes(bytes(d["pk"]))
+        vk_bytes = bytes(d["vk"])
+        digest, config = bytes.fromhex(str(d["vk_digest"])), str(d["config"])
+    return str(pk_path), vk_bytes, digest, config
 
 
-def test_keygen_vk_digest_matches_jax(keys):
-    jpk, tpk, tsrs = keys
-    assert TKG.vk_digest(tpk.vk) == JKG.vk_digest(jpk.vk)
-    assert tpk.vk.shape == jpk.vk.shape
-    for name in ("fixed_coeffs", "sigma_coeffs", "sigma_vals"):
-        assert np.array_equal(np.asarray(getattr(jpk, name)),
-                              TF.to_numpy(getattr(tpk, name))), name
-    assert tpk.asm.config_json() == jpk.asm.config_json()
+def test_keygen_vk_digest_matches_jax(jax_keys, port_keys):
+    pk_path, vk_bytes, digest, config = jax_keys
+    tpk, tsrs = port_keys
+    assert TKG.vk_digest(tpk.vk) == digest
+    assert tpk.vk.shape == load_vk_bytes(vk_bytes, JKG.load_vk).shape
+    with np.load(pk_path) as jpk:
+        for name in ("fixed_coeffs", "sigma_coeffs", "sigma_vals"):
+            assert np.array_equal(jpk[name],
+                                  TF.to_numpy(getattr(tpk, name))), name
+    assert json.dumps(tpk.asm.config_json()) == config  # the config file
     # coefficient-form commits (NTT, then the full-width table MSM) give
     # the same points as the keygen's evaluation-form commits
     committer = TKG.make_committer(tsrs, 1 << K, tpk.asm.u)  # cached table
@@ -106,20 +134,19 @@ def test_keygen_vk_digest_matches_jax(keys):
         (p.x, p.y) for p in tpk.vk.fixed_commits[:2]]
 
 
-def test_load_jax_written_pk_and_vk(keys, tmp_path):
-    jpk, tpk, _ = keys
-    pk_path, vk_path = str(tmp_path / "c.pk.npz"), str(tmp_path / "c.vk.npz")
-    JKG.save_pk(jpk, pk_path)
-    JKG.save_vk(jpk.vk, vk_path)
-    vk = TKG.load_vk(vk_path)
-    assert TKG.vk_digest(vk) == JKG.vk_digest(jpk.vk)
-    pk = TKG.load_pk(pk_path, vk, make_circuit(TR), _tin(), device="cpu")
+def test_load_jax_written_pk_and_vk(jax_keys, port_keys, tmp_path):
+    jpk_path, vk_bytes, digest, _ = jax_keys
+    tpk, _ = port_keys
+    vk = load_vk_bytes(vk_bytes, TKG.load_vk)
+    assert TKG.vk_digest(vk) == digest
+    pk = TKG.load_pk(jpk_path, vk, make_circuit(TR), _tin(), device="cpu")
     assert TKG.LAST_PK_LOAD == {"route": "derived", "reason": "no cache"}
     for name in convert.PK_ARRAYS:
         assert np.array_equal(TF.to_numpy(getattr(pk, name)),
                               TF.to_numpy(getattr(tpk, name))), name
     assert pk.asm.config_json() == tpk.asm.config_json()
     # and the port's own artifacts round-trip
+    pk_path = str(tmp_path / "c.pk.npz")
     TKG.save_pk(tpk, pk_path)
     k, arrays = convert.proving_key_arrays(pk_path, "cpu")
     assert k == K and all(torch_equal(arrays[n], getattr(tpk, n))
@@ -128,6 +155,24 @@ def test_load_jax_written_pk_and_vk(keys, tmp_path):
 
 def torch_equal(a, b):
     return np.array_equal(TF.to_numpy(a), TF.to_numpy(b))
+
+
+@pytest.mark.slow
+def test_keygen_fixture_matches_jax_package():
+    gen = _generator()
+    fresh = gen.compute()
+    with np.load(FIXTURE) as d:
+        stored = {n: d[n] for n in d.files}
+    for key in ("vk_digest", "config"):
+        assert str(fresh[key]) == str(stored[key]), key
+    got, want = gen.pk_arrays(fresh["pk"]), gen.pk_arrays(stored["pk"])
+    assert list(got) == list(want)
+    for name in want:
+        assert np.array_equal(got[name], want[name]), name
+    # the vk files by digest: an npz file's bytes carry its write time
+    digests = [JKG.vk_digest(load_vk_bytes(d["vk"], JKG.load_vk))
+               for d in (fresh, stored)]
+    assert digests == [bytes.fromhex(str(stored["vk_digest"]))] * 2
 
 
 def test_convert_rejects_bad_limbs():
