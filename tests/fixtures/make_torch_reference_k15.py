@@ -1,15 +1,21 @@
-"""Compute the JAX package's large-parameter (N=2048, Q=2^120-119, k=15)
-references that the PyTorch port is held to, and write them to
-``torch_reference_k15.json``.
+"""Compute the JAX package's large-parameter (N=2048, k=15) references
+that the PyTorch port is held to, for one of two moduli, and write them
+to a JSON file beside this script.
 
     JAX_PLATFORMS=cpu python tests/fixtures/make_torch_reference_k15.py
+    JAX_PLATFORMS=cpu python tests/fixtures/make_torch_reference_k15.py --q q54
     JAX_PLATFORMS=cpu python tests/fixtures/make_torch_reference_k15.py --digest
 
-The configuration is ``scripts/bench_k15.py``'s: ``BfvParams(n=2048,
-q=2^120-119)`` (T=7, B=19) on ``generate_input(seed=15)`` at k=15. The
-values need no witness and no commitment, so they take a minute or two on
-the CPU: the layout (``trace_layout`` records shapes only) with its
-context sizes, public-value count and ``layout_digest`` (the digest of
+``--q`` picks the parameter set (``PARAMS``): ``q120`` (the default),
+Q = 2^120 - 119, ``scripts/bench_k15.py``'s modulus, written to
+``torch_reference_k15.json``; or ``q54``, Q = 2^54 - 33, the largest
+54-bit prime, which the HE security standard (Albrecht et al. 2018,
+Table 1) admits at N=2048 for 128-bit security, written to
+``torch_reference_k15_q54.json`` (the benchmark's ``bfv_n2048_q54_k15``).
+Both take T=7, B=19 on ``generate_input(seed=15)`` at k=15. The values
+need no witness and no commitment, so they take a minute or two on the
+CPU: the layout (``trace_layout`` records shapes only) with its context
+sizes, public-value count and ``layout_digest`` (the digest of
 ``convert.layout_arrays``: gates, copies, constants, challenge and
 instance cells, bit bounds); the keygen's host assembly with the vk
 shape (``keygen.shape_of``), delta, the fixed and sigma column counts and
@@ -22,6 +28,7 @@ run on the CPU).
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -29,18 +36,21 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
-OUT = os.path.join(HERE, "torch_reference_k15.json")
 sys.path.insert(0, HERE)
 
 from make_torch_reference import MOCK_GAMMA, proof_len, trace_digest  # noqa: E402,E501
 
 K = 15
 N = 2048
-Q = (1 << 120) - 119
 SEED = 15
+# parameter set -> (Q, the fixture it is written to)
+PARAMS = {
+    "q120": ((1 << 120) - 119, os.path.join(HERE, "torch_reference_k15.json")),
+    "q54": ((1 << 54) - 33, os.path.join(HERE, "torch_reference_k15_q54.json")),
+}
 
 
-def compute(with_digest: bool = False) -> dict:
+def compute(with_digest: bool = False, q: int = PARAMS["q120"][0]) -> dict:
     sys.path.insert(0, ROOT)
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -52,7 +62,7 @@ def compute(with_digest: bool = False) -> dict:
     from zkfhe_tpu.trace import compile as TC
     from zkfhe_tpu_torch.utils import convert as CV
 
-    params = bfv.BfvParams(n=N, q=Q)
+    params = bfv.BfvParams(n=N, q=q)
     circuit = bfv.make_bfv_circuit(params)
     inputs = bfv.generate_input(params, seed=SEED).to_arrays(params)
     out = {"k": K, "params": {"n": params.n, "q": params.q,
@@ -91,7 +101,14 @@ def compute(with_digest: bool = False) -> dict:
 
 
 if __name__ == "__main__":
-    ref = compute("--digest" in sys.argv[1:])
-    with open(OUT, "w") as f:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--q", choices=sorted(PARAMS), default="q120",
+                    help="the parameter set (default q120)")
+    ap.add_argument("--digest", action="store_true",
+                    help="also run the full-size JAX witness")
+    args = ap.parse_args()
+    q, out = PARAMS[args.q]
+    ref = compute(args.digest, q)
+    with open(out, "w") as f:
         json.dump(ref, f, indent=1)
-    print(f"wrote {OUT}")
+    print(f"wrote {out}")

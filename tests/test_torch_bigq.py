@@ -10,10 +10,15 @@ takes minutes to compile on the CPU:
   trace, and a JAX proof of the N=2 circuit at k=9 with its pk, vk and
   every blinding draw. The port proves on that pk (and the SRS points of
   torch_batch_k9.npz) with the draws replayed; the bytes must be equal.
-* tests/fixtures/torch_reference_k15.json (make_torch_reference_k15.py):
-  the k=15 layout sizes, public-value count and layout digest, and the vk
-  shape, delta, fixed-column digest and proof length, from the JAX layout
-  and host assembly.
+* tests/fixtures/torch_reference_k15.json and torch_reference_k15_q54.json
+  (make_torch_reference_k15.py, ``--q q120`` and ``--q q54``): the k=15
+  layout sizes, public-value count and layout digest, and the vk shape,
+  delta, fixed-column digest and proof length, from the JAX layout and
+  host assembly, at Q = 2^120 - 119 and at the benchmark's Q = 2^54 - 33.
+* tests/fixtures/torch_q54_k9.npz (make_torch_q54_reference.py): the JAX
+  proving key of the N=16, Q = 2^54 - 33 circuit at k=9, on which
+  portbench/tests/test_portbench_q54.py proves; the ``slow`` test here
+  recomputes it.
 * tests/fixtures/torch_proof_k15.npz: a k=15 proof, its instance and its vk
   (the bytes of a ``keygen.save_vk`` file) that the port made on an H100
   (``chip_smoke.py --save-proof``); the JAX verifier must accept it.
@@ -45,6 +50,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
 FIXTURE = os.path.join(FIXTURES, "torch_bigq_k9.npz")
 K15 = os.path.join(FIXTURES, "torch_reference_k15.json")
+Q54_K9 = os.path.join(FIXTURES, "torch_q54_k9.npz")
+# parameter set (make_torch_reference_k15.PARAMS) -> its k=15 fixture
+K15_FIXTURES = {
+    "q120": K15,
+    "q54": os.path.join(FIXTURES, "torch_reference_k15_q54.json"),
+}
 PROOF_K15 = os.path.join(FIXTURES, "torch_proof_k15.npz")
 
 # one intra-op thread: the suite runs several workers on a few cores
@@ -142,13 +153,15 @@ def test_wide_q_proof_byte_identical_to_jax_and_accepted(tmp_path):
     assert TVF.verify(vk, proof, inst)
 
 
-def test_k15_layout_and_vk_shape_match_jax():
+@pytest.mark.parametrize("pset", sorted(K15_FIXTURES))
+def test_k15_layout_and_vk_shape_match_jax(pset):
     """The k=15 circuit's layout, laid out on ``meta`` tensors (shapes
-    only: the full-size witness runs on the card, chip_smoke.py), and the
-    keygen's host assembly: the JAX package's sizes, public values and
-    layout (gates, copies, constants, instance cells, bit bounds), vk
-    shape, delta, column counts and fixed columns' values."""
-    with open(K15) as f:
+    only: the full-size witness runs on the card, chip_smoke.py and
+    portbench's ``k15_serial``), and the keygen's host assembly: the JAX
+    package's sizes, public values and layout (gates, copies, constants,
+    instance cells, bit bounds), vk shape, delta, column counts and fixed
+    columns' values, at each modulus."""
+    with open(K15_FIXTURES[pset]) as f:
         ref = json.load(f)
     params = TB.BfvParams(**ref["params"])
     inputs = TB.generate_input(params, seed=ref["input_seed"]).to_arrays(
@@ -203,14 +216,38 @@ def test_bigq_fixture_matches_jax_package():
 
 
 @pytest.mark.slow
-def test_k15_fixture_matches_jax_package():
+@pytest.mark.parametrize("pset", sorted(K15_FIXTURES))
+def test_k15_fixture_matches_jax_package(pset):
     spec = importlib.util.spec_from_file_location(
         "make_torch_reference_k15",
         os.path.join(FIXTURES, "make_torch_reference_k15.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    with open(K15) as f:
+    q, path = mod.PARAMS[pset]
+    assert path == K15_FIXTURES[pset]
+    with open(path) as f:
         stored = json.load(f)
     fresh = json.loads(json.dumps(mod.compute("trace_digest" in
-                                              stored["mock"])))
+                                              stored["mock"], q)))
     assert fresh == stored
+
+
+@pytest.mark.slow
+def test_q54_fixture_matches_jax_package():
+    import io
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_q54_reference",
+        os.path.join(FIXTURES, "make_torch_q54_reference.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    stored = np.load(Q54_K9)
+    fresh = mod.compute()
+    assert sorted(fresh) == sorted(stored.files)
+    for key in ("params", "vk_digest"):
+        assert str(fresh[key]) == str(stored[key]), key
+    for key in ("pk", "vk"):  # npz files: compared by content
+        a, b = (np.load(io.BytesIO(bytes(x)), allow_pickle=True)
+                for x in (fresh[key], stored[key]))
+        assert a.files == b.files, key
+        for name in a.files:
+            assert np.array_equal(a[name], b[name]), (key, name)
